@@ -1,0 +1,54 @@
+"""numpy -> port converters.
+
+State made elsewhere (for example the JAX package's arrays, passed through
+``np.asarray``) enters the port through these, so both packages solve the
+same problems from the same warm starts.  Each takes an explicit ``device``
+and ``dtype``; integer fields (status, iters) stay int32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .controllers.mpc import MPCWeights
+from .qp.solver import QPFactors
+from .qp.types import QPSolution, QuadraticProgram
+
+
+def _t(a, device, dtype):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def qp_from_numpy(qp, device="cpu", dtype=torch.float64) -> QuadraticProgram:
+    """``(P, q, A, l, u)`` arrays (any leading batch axes) -> QuadraticProgram."""
+    return QuadraticProgram(*(_t(a, device, dtype) for a in qp))
+
+
+def factors_from_numpy(factors, device="cpu", dtype=torch.float64) -> QPFactors:
+    """A QPFactors-like tuple of arrays (c, sx, sy, rho, Ps, As, Mred, Minv,
+    fact_ok) -> QPFactors."""
+    c, sx, sy, rho, Ps, As, Mred, Minv, fact_ok = factors
+    return QPFactors(
+        *(_t(a, device, dtype) for a in (c, sx, sy, rho, Ps, As, Mred, Minv)),
+        fact_ok=_t(fact_ok, device, torch.bool),
+    )
+
+
+def solution_from_numpy(sol, device="cpu", dtype=torch.float64) -> QPSolution:
+    """A QPSolution-like tuple of arrays -> QPSolution (e.g. a warm start)."""
+    primal, dual, status, iters, objective, pres, dres = sol
+    return QPSolution(
+        primal=_t(primal, device, dtype),
+        dual=_t(dual, device, dtype),
+        status=_t(status, device, torch.int32),
+        iters=_t(iters, device, torch.int32),
+        objective=_t(objective, device, dtype),
+        primal_res=_t(pres, device, dtype),
+        dual_res=_t(dres, device, dtype),
+    )
+
+
+def weights_from_numpy(weights, device="cpu", dtype=torch.float64) -> MPCWeights:
+    """``(Q, Qtf, R)`` arrays -> MPCWeights."""
+    return MPCWeights(*(_t(a, device, dtype) for a in weights))

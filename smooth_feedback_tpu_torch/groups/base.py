@@ -1,0 +1,103 @@
+"""Lie group abstraction (PyTorch port of ``smooth_feedback_tpu/groups/base.py``).
+
+A group element is a plain tensor of shape ``(nparams,)`` and a tangent
+vector a tensor of shape ``(ndof,)``; batches are leading axes handled with
+``torch.func.vmap``.  A :class:`LieGroup` instance is a stateless, hashable
+description of the group.  Concrete groups must implement
+exp/log/compose/inverse; the right Jacobians and adjoints fall back to
+``torch.func.jacfwd`` of those, through the identities
+
+    dr_exp(v)    = d/dw log( exp(v)^{-1} o exp(v + w) ) |_{w=0}
+    dr_expinv(v) = d/dw log( exp(v) o exp(w) )          |_{w=0}
+    Ad(g)        = d/dw log( g o exp(w) o g^{-1} )      |_{w=0}
+    ad(v)        = d/ds Ad( exp(s v) )                  |_{s=0}
+
+Conventions (right-trivialized): ``rplus(x, v) = x o exp(v)``,
+``rminus(a, b) = log(b^{-1} o a)``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import jacfwd
+
+
+class LieGroup:
+    """Stateless description of a Lie group; elements are flat tensors."""
+
+    nparams: int
+    ndof: int
+
+    # ------------------------------------------------------------------ core
+    def identity(self, dtype=None, device=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def exp(self, v: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def log(self, g: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def compose(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def inverse(self, g: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ derived ops
+    def rplus(self, g, v):
+        """Right-plus: ``g (+) v = g o exp(v)``."""
+        return self.compose(g, self.exp(v))
+
+    def rminus(self, a, b):
+        """Right-minus: ``a (-) b = log(b^{-1} o a)`` (tangent at ``b``)."""
+        return self.log(self.compose(self.inverse(b), a))
+
+    def lplus(self, g, v):
+        """Left-plus: ``v (+) g = exp(v) o g``."""
+        return self.compose(self.exp(v), g)
+
+    def lminus(self, a, b):
+        """Left-minus: ``log(a o b^{-1})``."""
+        return self.log(self.compose(a, self.inverse(b)))
+
+    # ------------------------------------------------- adjoints and Jacobians
+    def Ad(self, g):
+        """Adjoint matrix of a group element, shape ``(ndof, ndof)``."""
+        z = torch.zeros((self.ndof,), dtype=g.dtype, device=g.device)
+        return jacfwd(
+            lambda w: self.log(self.compose(self.compose(g, self.exp(w)), self.inverse(g)))
+        )(z)
+
+    def ad(self, v):
+        """Adjoint matrix of a tangent element (Lie bracket ``ad_v w = [v, w]``)."""
+        s = torch.zeros((), dtype=v.dtype, device=v.device)
+        return jacfwd(lambda t: self.Ad(self.exp(t * v)))(s)
+
+    def dr_exp(self, v):
+        """Right Jacobian of ``exp`` at ``v``, shape ``(ndof, ndof)``."""
+        z = torch.zeros_like(v)
+        return jacfwd(
+            lambda w: self.log(self.compose(self.inverse(self.exp(v)), self.exp(v + w)))
+        )(z)
+
+    def dr_expinv(self, v):
+        """Inverse of the right Jacobian of ``exp`` at ``v``."""
+        z = torch.zeros_like(v)
+        return jacfwd(lambda w: self.log(self.compose(self.exp(v), self.exp(w))))(z)
+
+    def is_commutative(self) -> bool:
+        return False
+
+    # hashability: compared by type and the fields subclasses declare
+    def _key(self):
+        return (type(self).__name__,)
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __eq__(self, other):
+        return isinstance(other, LieGroup) and self._key() == other._key()
+
+    def __repr__(self):
+        return type(self).__name__

@@ -1,0 +1,460 @@
+"""Batched ADMM QP solver (operator splitting, OSQP-style), PyTorch port.
+
+Counterpart of ``smooth_feedback_tpu/qp/solver.py``: modified-Ruiz scaling,
+per-row rho, a Cholesky-based explicit inverse of the reduced KKT matrix
+``P_s + sigma I + A_s' diag(rho) A_s``, and the batched ADMM loop with the
+unscaled-residual stopping check and infeasibility certificates.  Statuses
+and iteration counts follow the JAX package exactly.
+
+Shared factors (``qp_factorize`` of one template, no batch axis on
+``Minv``) keep ``P``, ``A`` and ``Minv`` 2-D, so every product is one
+``(B, k) @ (k, j)`` GEMM and no batch of copies is materialized.
+
+Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs the
+shared-matrix kernel of ``qp/cuda_kernel.py`` (shared factors only).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .._precision import ieee_f32_matmul
+from .types import QPSolution, QPSolutionStatus, QPSolverParams, QuadraticProgram
+
+_RUNNING = int(QPSolutionStatus.Running)
+_OPTIMAL = int(QPSolutionStatus.Optimal)
+_PRIMAL_INF = int(QPSolutionStatus.PrimalInfeasible)
+_DUAL_INF = int(QPSolutionStatus.DualInfeasible)
+_MAX_ITER = int(QPSolutionStatus.MaxIterations)
+_UNKNOWN = int(QPSolutionStatus.Unknown)
+
+
+def _norm_inf(x, dim=-1):
+    return x.abs().amax(dim=dim)
+
+
+def _mv(M, v):
+    """``M v`` per batch row: M is (j, k) shared or (B, j, k); v is (B, k)."""
+    if M.dim() == 2:
+        return v @ M.T
+    return torch.einsum("bjk,bk->bj", M, v)
+
+
+def _mtv(M, v):
+    """``M' v`` per batch row: M is (j, k) shared or (B, j, k); v is (B, j)."""
+    if M.dim() == 2:
+        return v @ M
+    return torch.einsum("bjk,bj->bk", M, v)
+
+
+def _not_ported(option: str, where: str):
+    raise NotImplementedError(
+        f"{option} is not ported to the PyTorch package yet ({where})"
+    )
+
+
+def _check_params(prm: QPSolverParams):
+    if prm.polish:
+        _not_ported("polish", "ROADMAP Queue 1 item 10")
+    if prm.compensated_check:
+        _not_ported("compensated_check", "ROADMAP Queue 1 item 10")
+    if prm.adaptive_rho:
+        _not_ported("adaptive_rho", "ROADMAP Queue 1 item 10")
+    if prm.kkt_refine_iters > 0:
+        _not_ported("kkt_refine_iters > 0", "ROADMAP Queue 1 item 10")
+    if prm.verbose:
+        _not_ported("verbose", "ROADMAP Queue 1 item 10")
+    if prm.backend == "lane":
+        _not_ported("backend='lane'", "ROADMAP Queue 1 item 11")
+    if prm.backend not in ("torch", "cuda"):
+        raise ValueError(f"unknown backend {prm.backend!r} (use 'torch' or 'cuda')")
+
+
+# ------------------------------------------------------------------- scaling
+
+
+def _ruiz(P, q, A, max_ruiz_iter: int = 10):
+    """Modified-Ruiz equilibration of a batch of QPs (B, n, n), (B, n),
+    (B, m, n).  Returns ``(c, sx, sy)`` with ``P_s = c Sx P Sx``,
+    ``q_s = c Sx q``, ``A_s = Sy A Sx``.  Each member stops sweeping on its
+    own, as under ``jax.vmap`` of the JAX package's while-loop."""
+    dt, dev = P.dtype, P.device
+    B, n, _ = P.shape
+    m = A.shape[1]
+
+    colnorm_P = _norm_inf(P, dim=1)
+    colnorm_P = torch.where(colnorm_P == 0, 1.0, colnorm_P)
+    floor = torch.tensor(1e-6, dtype=dt, device=dev)
+    c = 1.0 / torch.maximum(floor, torch.maximum(colnorm_P.mean(dim=1), _norm_inf(q)))
+
+    sx = torch.ones((B, n), dtype=dt, device=dev)
+    sy = torch.ones((B, m), dtype=dt, device=dev)
+    err = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    it = 0
+    while it == 0 or (it <= max_ruiz_iter and bool((err > 0.1).any())):
+        active = torch.ones_like(err, dtype=torch.bool) if it == 0 else err > 0.1
+        Pn = (c[:, None, None] * sx[:, :, None] * sx[:, None, :] * P).abs()
+        An = (sy[:, :, None] * A * sx[:, None, :]).abs()
+        sx_inc = torch.maximum(Pn.amax(dim=1), An.amax(dim=1))
+        sy_inc = An.amax(dim=2)
+        sx_inc = torch.where(sx_inc == 0, 1.0, sx_inc)
+        sy_inc = torch.where(sy_inc == 0, 1.0, sy_inc)
+        err_new = torch.maximum(
+            (sx_inc - 1.0).abs().amax(dim=1), (sy_inc - 1.0).abs().amax(dim=1)
+        )
+        sx_new = sx * torch.rsqrt(torch.clamp(sx_inc, min=1e-8))
+        sy_new = sy * torch.rsqrt(torch.clamp(sy_inc, min=1e-8))
+        sx = torch.where(active[:, None], sx_new, sx)
+        sy = torch.where(active[:, None], sy_new, sy)
+        err = torch.where(active, err_new, err)
+        it += 1
+    return c, sx, sy
+
+
+# ------------------------------------------------------------ stopping check
+
+
+def _stopping_check(prm, P, q, A, l, u, x_us, y_us, z_us, dx_us, dy_us):
+    """Per-element convergence / infeasibility certificates on UNSCALED data.
+    ``P``/``A`` are shared 2-D or batched 3-D; vectors carry the batch."""
+    eps_abs, eps_rel = prm.eps_abs, prm.eps_rel
+    eps_pinf, eps_dinf = prm.eps_primal_inf, prm.eps_dual_inf
+
+    diverged = ~(torch.isfinite(x_us).all(dim=1) & torch.isfinite(y_us).all(dim=1))
+
+    Ax = _mv(A, x_us)
+    pres = _norm_inf(Ax - z_us)
+    Px = _mv(P, x_us)
+    Aty = _mtv(A, y_us)
+    dres = _norm_inf(Px + q + Aty)
+    prim_ok = pres <= eps_abs + eps_rel * torch.maximum(_norm_inf(Ax), _norm_inf(z_us))
+    dscale = torch.maximum(_norm_inf(Px), torch.maximum(_norm_inf(q), _norm_inf(Aty)))
+    dual_ok = dres <= eps_abs + eps_rel * dscale
+    optimal = prim_ok & dual_ok
+
+    # primal infeasibility certificate (dy direction)
+    E = _norm_inf(dy_us)
+    Atdy = _mtv(A, dy_us)
+    u_inf = torch.isinf(u)
+    l_inf = torch.isinf(l)
+    viol = (
+        (u_inf & (dy_us > eps_pinf * E[:, None])) | (l_inf & (dy_us < -eps_pinf * E[:, None]))
+    ).any(dim=1)
+    sum_term = (
+        torch.where(u_inf, 0.0, u * torch.clamp(dy_us, min=0.0))
+        + torch.where(l_inf, 0.0, l * torch.clamp(dy_us, max=0.0))
+    ).sum(dim=1)
+    prim_inf = ~viol & (torch.maximum(_norm_inf(Atdy), sum_term) < eps_pinf * E)
+
+    # dual infeasibility certificate (dx direction)
+    dxn = _norm_inf(dx_us)
+    Pdx = _mv(P, dx_us)
+    Adx = _mv(A, dx_us)
+    tol = eps_dinf * dxn[:, None]
+    row_ok = torch.where(
+        u_inf, Adx >= -tol, torch.where(l_inf, Adx <= tol, Adx.abs() < tol)
+    ).all(dim=1)
+    dual_inf = (
+        (_norm_inf(Pdx) <= eps_dinf * dxn)
+        & ((q * dx_us).sum(dim=1) <= eps_dinf * dxn)
+        & row_ok
+    )
+
+    B = x_us.shape[0]
+    st = torch.full((B,), _RUNNING, dtype=torch.int32, device=x_us.device)
+    st = torch.where(dual_inf, _DUAL_INF, st)
+    st = torch.where(prim_inf, _PRIMAL_INF, st)
+    st = torch.where(optimal, _OPTIMAL, st)
+    st = torch.where(diverged, _UNKNOWN, st).to(torch.int32)
+    return st, pres, dres
+
+
+# -------------------------------------------------------------------- factors
+
+
+class QPFactors(NamedTuple):
+    """Precomputed scaling + reduced-KKT factorization (leading batch axis,
+    or none for factors shared by a whole batch)."""
+
+    c: torch.Tensor  # (B,) cost scaling
+    sx: torch.Tensor  # (B, n) variable scaling
+    sy: torch.Tensor  # (B, m) constraint scaling
+    rho: torch.Tensor  # (B, m) per-row dual step
+    Ps: torch.Tensor  # (B, n, n) scaled P
+    As: torch.Tensor  # (B, m, n) scaled A
+    Mred: torch.Tensor  # (B, n, n) reduced KKT matrix
+    Minv: torch.Tensor  # (B, n, n) its SPD inverse
+    fact_ok: torch.Tensor  # (B,) factorization success
+
+
+def _factorize(P, q, A, l, u, prm):
+    dt, dev = P.dtype, P.device
+    B, m, n = A.shape
+    inf = float("inf")
+
+    if prm.scaling:
+        c, sx, sy = _ruiz(P, q, A)
+    else:
+        c = torch.ones((B,), dtype=dt, device=dev)
+        sx = torch.ones((B, n), dtype=dt, device=dev)
+        sy = torch.ones((B, m), dtype=dt, device=dev)
+
+    # per-row rho; NaN (inf - inf) compares False => inequality row
+    unbounded = (l == -inf) & (u == inf)
+    eq = sy * (l - u).abs() < 1e-5
+    rho = torch.where(
+        unbounded,
+        torch.tensor(1e-6, dtype=dt, device=dev),
+        torch.where(
+            eq,
+            torch.tensor(prm.rho_eq_scale * prm.rho, dtype=dt, device=dev),
+            torch.tensor(prm.rho, dtype=dt, device=dev),
+        ),
+    )
+
+    Ps = c[:, None, None] * sx[:, :, None] * sx[:, None, :] * P
+    As = sy[:, :, None] * A * sx[:, None, :]
+
+    eye = torch.eye(n, dtype=dt, device=dev)
+    Mred = Ps + prm.sigma * eye[None] + torch.einsum("bmn,bm,bmk->bnk", As, rho, As)
+    L, info = torch.linalg.cholesky_ex(Mred)
+    fact_fail = (info != 0) | ~torch.isfinite(L).all(dim=2).all(dim=1)
+    # neutralize broken factors so frozen elements don't poison the batch
+    L = torch.where(fact_fail[:, None, None], eye[None], L)
+
+    # explicit SPD inverse M^{-1} = L^{-T} L^{-1}
+    Linv = torch.linalg.solve_triangular(L, eye.expand(B, n, n), upper=False)
+    Minv = torch.einsum("bkn,bkm->bnm", Linv, Linv)
+
+    return QPFactors(
+        c=c, sx=sx, sy=sy, rho=rho, Ps=Ps, As=As, Mred=Mred, Minv=Minv, fact_ok=~fact_fail
+    )
+
+
+def qp_factorize(qp: QuadraticProgram, prm: QPSolverParams = QPSolverParams()) -> QPFactors:
+    """Precompute scaling and KKT factorization for a batched QP template."""
+    P, q, A, l, u = qp
+    with ieee_f32_matmul():
+        return _factorize(P, q, A, l, u, prm)
+
+
+# -------------------------------------------------------------------- solver
+
+
+def _finalize_solution(P, q, c, sx, sy, x, y, status, iters, pres, dres):
+    """Unscale and assemble the solution (``polish=False``)."""
+    primal = sx * x
+    dual = sy * y / c[:, None]
+    objective = (primal * (0.5 * _mv(P, primal) + q)).sum(dim=1)
+    return QPSolution(
+        primal=primal, dual=dual, status=status, iters=iters, objective=objective,
+        primal_res=pres, dual_res=dres,
+    )
+
+
+def solve_qp_batch(
+    qp: QuadraticProgram,
+    prm: QPSolverParams = QPSolverParams(),
+    warmstart: Optional[QPSolution] = None,
+    factors: Optional[QPFactors] = None,
+) -> QPSolution:
+    """Solve a batch of dense QPs; every field of ``qp`` has a leading batch
+    axis (of size 1 for a field shared by the batch).
+
+    If ``factors`` is supplied (see :func:`qp_factorize`), ``P``/``A`` must
+    match the template the factors were built from; only q/l/u are read."""
+    _check_params(prm)
+    with ieee_f32_matmul():
+        return _solve_qp_batch_impl(qp, prm, warmstart, factors)
+
+
+def _batch_view(qp, factors):
+    """``(P, q, A, l, u, shared)`` with the vectors expanded to the batch;
+    with shared factors ``P`` and ``A`` are the 2-D template, otherwise they
+    are expanded to (B, ., n)."""
+    P, q, A, l, u = qp
+    B = max(a.shape[0] for a in qp)
+    m, n = A.shape[-2:]
+    q = q.expand(B, n)
+    l = l.expand(B, m)
+    u = u.expand(B, m)
+    shared = factors is not None and factors.Minv.dim() == 2
+    if shared:
+        # shared matrices stay 2-D: products are (B, k) @ (k, j) GEMMs
+        if P.shape[0] != 1 or A.shape[0] != 1:
+            raise ValueError("shared factors need P and A with a leading axis of 1")
+        return P[0], q, A[0], l, u, True
+    return P.expand(B, n, n), q, A.expand(B, m, n), l, u, False
+
+
+def _scaled_inputs(A, q, l, u, factors, warmstart, shared):
+    """Scaled vectors, the scaled warm start (zeros without one) and the
+    initial statuses: ``(cB, sxB, syB, qs, ls, us, x0, z0, y0, status0)``."""
+    c, sx, sy, _, _, _, _, _, fact_ok = factors
+    B, n = q.shape
+    m = l.shape[1]
+    dt, dev = A.dtype, A.device
+    inf = float("inf")
+
+    # trivial infeasibility
+    bad_row = (l == inf) | (u == -inf) | ((u - l) < 0)
+    status0 = torch.where(
+        bad_row.any(dim=1), _PRIMAL_INF, torch.where(~fact_ok, _UNKNOWN, _RUNNING)
+    ).to(torch.int32)
+
+    if shared:
+        qs = c * sx[None, :] * q
+        ls = sy[None, :] * l
+        us = sy[None, :] * u
+        cB = c.expand(B)
+        sxB = sx[None, :].expand(B, n)
+        syB = sy[None, :].expand(B, m)
+    else:
+        qs = c[:, None] * sx * q
+        ls = sy * l
+        us = sy * u
+        cB, sxB, syB = c, sx, sy
+
+    if warmstart is not None:
+        x0 = warmstart.primal / sxB
+        y0 = cB[:, None] * warmstart.dual / syB
+        z0 = syB * _mv(A, warmstart.primal)
+    else:
+        x0 = torch.zeros((B, n), dtype=dt, device=dev)
+        y0 = torch.zeros((B, m), dtype=dt, device=dev)
+        z0 = torch.zeros((B, m), dtype=dt, device=dev)
+    return cB, sxB, syB, qs, ls, us, x0, z0, y0, status0
+
+
+def _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0):
+    """The shared-matrix kernel's arguments after ``prm``, in its order."""
+    c, sx, sy, rho, Ps, As, _, Minv, _ = factors
+    f32 = lambda a: a.to(torch.float32).contiguous()
+    return (
+        f32(Minv), f32(As), f32(Ps), f32(qs), f32(ls), f32(us),
+        f32(rho), f32(sx), f32(sy), f32(c), f32(l), f32(u),
+        f32(x0), f32(z0), f32(y0), status0.contiguous(),
+    )
+
+
+def shared_kernel_args(
+    qp: QuadraticProgram, factors: QPFactors, warmstart: Optional[QPSolution] = None
+):
+    """What :func:`solve_qp_batch` on ``backend="cuda"`` hands
+    ``admm_iterate_cuda_shared`` after ``prm`` (before any straggler sort),
+    for a batch ``qp`` against shared ``factors`` (no batch axis): the
+    factors, the scaled vectors, the scaled warm start and the initial
+    statuses, as contiguous float32 (int32 statuses).  The plain version
+    ``admm_iterate_shared_reference`` takes the same arguments."""
+    P, q, A, l, u, shared = _batch_view(qp, factors)
+    if not shared:
+        raise ValueError("shared_kernel_args needs shared (batch-free) factors")
+    _, _, _, qs, ls, us, x0, z0, y0, status0 = _scaled_inputs(
+        A, q, l, u, factors, warmstart, True
+    )
+    return _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
+
+
+def _solve_qp_batch_impl(qp, prm, warmstart, factors):
+    P, q, A, l, u, shared = _batch_view(qp, factors)
+    dt, dev = A.dtype, A.device
+    B = q.shape[0]
+    inf = float("inf")
+    if prm.backend == "cuda" and not shared:
+        _not_ported(
+            "backend='cuda' with per-problem factors (the per-problem kernel)",
+            "ROADMAP Queue 2 item 2",
+        )
+    if factors is None:
+        factors = _factorize(P, q, A, l, u, prm)
+    c, sx, sy, rho, Ps, As, Mred, Minv, fact_ok = factors
+    cB, sxB, syB, qs, ls, us, x0, z0, y0, status0 = _scaled_inputs(
+        A, q, l, u, factors, warmstart, shared
+    )
+
+    if prm.backend == "cuda":
+        from .cuda_kernel import admm_iterate_cuda_shared
+
+        # sort_stragglers: a pure batch permutation, inverted on the way out
+        do_sort = prm.sort_stragglers and warmstart is not None
+        if do_sort:
+            perm = torch.argsort(warmstart.iters, stable=True)
+            inv_perm = torch.argsort(perm)
+            qs, ls, us, l_s, u_s, x0, z0, y0, status0 = (
+                a[perm] for a in (qs, ls, us, l, u, x0, z0, y0, status0)
+            )
+        else:
+            l_s, u_s = l, u
+        x, z, y, status, iters, pres, dres = admm_iterate_cuda_shared(
+            prm, *_kernel_args(factors, qs, ls, us, l_s, u_s, x0, z0, y0, status0)
+        )
+        if do_sort:
+            x, z, y, status, iters, pres, dres = (
+                a[inv_perm] for a in (x, z, y, status, iters, pres, dres)
+            )
+        return _finalize_solution(
+            P, q, cB, sxB, syB, x.to(dt), y.to(dt), status, iters, pres.to(dt), dres.to(dt)
+        )
+
+    if shared:
+        rho = rho[None, :]
+        Minv_mv = lambda r: r @ Minv.T
+    else:
+        Minv_mv = lambda r: torch.einsum("bnm,bm->bn", Minv, r)
+    alpha = prm.alpha
+
+    x, z, y = x0, z0, y0
+    status = status0
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pres = torch.full((B,), inf, dtype=dt, device=dev)
+    dres = torch.full((B,), inf, dtype=dt, device=dev)
+    k = prm.stop_check_iter
+    it = 0
+    while it < prm.max_iter and bool((status == _RUNNING).any()):
+        x_old, y_old = x, y
+        rhs = prm.sigma * x - qs + _mtv(As, rho * z - y)
+        xt = Minv_mv(rhs)
+        zt = _mv(As, xt)
+
+        xn = alpha * xt + (1 - alpha) * x
+        zn = torch.clamp(alpha * zt + (1 - alpha) * z + y / rho, ls, us)
+        yn = y + rho * (alpha * zt + (1 - alpha) * z - zn)
+
+        # == (1 % k) so stop_check_iter == 1 means "every iteration"
+        if it % k == 1 % k:
+            new_status, pres_n, dres_n = _stopping_check(
+                prm, P, q, A, l, u,
+                sxB * xn, syB * yn / cB[:, None], zn / syB,
+                sxB * (xn - x_old), syB * (yn - y_old) / cB[:, None],
+            )
+        else:
+            new_status = torch.full((B,), _RUNNING, dtype=torch.int32, device=dev)
+            pres_n, dres_n = pres, dres
+
+        run = status == _RUNNING
+        runc = run[:, None]
+        x = torch.where(runc, xn, x)
+        z = torch.where(runc, zn, z)
+        y = torch.where(runc, yn, y)
+        status = torch.where(run, new_status, status)
+        iters = torch.where(run, it + 1, iters).to(torch.int32)
+        pres = torch.where(run, pres_n, pres)
+        dres = torch.where(run, dres_n, dres)
+        it += 1
+
+    status = torch.where(status == _RUNNING, _MAX_ITER, status).to(torch.int32)
+    return _finalize_solution(P, q, cB, sxB, syB, x, y, status, iters, pres, dres)
+
+
+def solve_qp(
+    qp: QuadraticProgram,
+    prm: QPSolverParams = QPSolverParams(),
+    warmstart: Optional[QPSolution] = None,
+) -> QPSolution:
+    """Solve a single dense QP (unbatched convenience wrapper)."""
+    qp_b = QuadraticProgram(*(a[None] for a in qp))
+    ws_b = None if warmstart is None else QPSolution(*(a[None] for a in warmstart))
+    sol = solve_qp_batch(qp_b, prm, ws_b)
+    return QPSolution(*(a[0] for a in sol))

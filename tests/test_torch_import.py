@@ -1,0 +1,50 @@
+"""The PyTorch port stays free of JAX."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "smooth_feedback_tpu_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_port_imports_without_jax():
+    """Every port module imports in a fresh interpreter from the repository
+    root (no install assumed) and leaves jax out of sys.modules; importing
+    builds nothing."""
+    mods = list(_modules())
+    assert "smooth_feedback_tpu_torch.qp.cuda_kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "from smooth_feedback_tpu_torch import _build\n"
+        "assert _build._lib is None\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=str(ROOT), timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_source_has_no_jax_import():
+    """No source file of the port imports jax, at top level or lazily."""
+    pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    assert not hits, hits
