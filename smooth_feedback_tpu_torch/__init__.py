@@ -1,10 +1,12 @@
 """smooth_feedback_tpu_torch: the PyTorch / CUDA port of smooth_feedback_tpu.
 
 Same public names and layout as the JAX package, one module per counterpart.
-This slice holds the QP types and solver core, the shared-matrix ADMM kernel
-(hand-written CUDA for Hopper, ``csrc/admm_shared.cu``), ``Rn``, the
-collocation mesh, the QP transcription and the condensed MPC fleet step.
-Importing the package builds nothing; the kernel is compiled at first use.
+It holds the QP types and solver core with two ADMM kernels hand-written in
+CUDA for Hopper (``csrc/admm_shared.cu`` for batches sharing their factors,
+``csrc/admm_problem.cu`` for per-problem factors), ``Rn``, ``SO2``, ``SE2``,
+the collocation mesh, the QP transcription, and the condensed and sparse
+MPC fleet steps.  Importing the package builds nothing; the kernels are
+compiled at first use.
 """
 
 from . import groups

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is then loaded with
-``ctypes``.  The build runs once, at first use, into ``build/kernels/`` at the
-repository root (listed in ``.gitignore``); the library's file name carries a
-hash of the sources and flags, so an edited source builds anew.  Importing
+Every ``csrc/*.cu`` source is compiled with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, which is then loaded
+with ``ctypes``.  The build runs once, at first use, into ``build/kernels/`` at
+the repository root (listed in ``.gitignore``); the library's file name
+carries a hash of the sources and flags, so an edited source builds anew.  Importing
 this module builds nothing.  A failed build or load raises: there is no
 fallback.
 """
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -62,9 +63,40 @@ def library_path() -> Path:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.admm_shared_launch.argtypes = [p] * 23 + [i, i, i, i] + [f] * 6 + [i, i, p]
-    lib.admm_shared_launch.restype = ctypes.c_int
+    for name in ("admm_shared_launch", "admm_problem_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 23 + [i, i, i, i] + [f] * 6 + [i, i, p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _compile(nvcc: str, out: Path):
+    """Compile every source to an object (in parallel) and link ``out``."""
+    objs, procs = [], []
+    for src in _sources():
+        obj = out.with_name(f"{out.stem}_{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((src.name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+        objs.append(obj)
+    logs, failed = [], []
+    for name, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
+    try:
+        if failed:
+            return "".join(logs), f"nvcc failed on {', '.join(failed)}"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(out), *map(str, objs)], capture_output=True, text=True
+        )
+        logs.append(link.stdout + link.stderr)
+        return "".join(logs), None if link.returncode == 0 else "nvcc link failed"
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def load():
@@ -79,12 +111,10 @@ def load():
             t0 = time.perf_counter()
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            build_log, error = _compile(_nvcc(), Path(tmp))
+            if error is not None:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+                raise RuntimeError(f"{error}:\n{build_log}")
             os.replace(tmp, path)  # atomic: concurrent builds agree
             build_seconds = time.perf_counter() - t0
         _lib = _declare(ctypes.CDLL(str(path)))

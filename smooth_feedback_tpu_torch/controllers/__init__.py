@@ -1,4 +1,5 @@
-"""Controllers (PyTorch port): the condensed MPC fleet step."""
+"""Controllers (PyTorch port): the MPC step, its fleets on one clock and on
+per-member clocks."""
 
 from .mpc import MPCParams, MPCStepResult, MPCWeights, make_mpc_step
 

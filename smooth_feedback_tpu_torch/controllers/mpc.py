@@ -1,14 +1,21 @@
 """Model-predictive control on Lie groups (PyTorch port of
-``smooth_feedback_tpu/controllers/mpc.py``): the condensed fleet path.
+``smooth_feedback_tpu/controllers/mpc.py``).
 
 One MPC step linearizes the tracking OCP around the reference, transcribes it
 to a QP, solves it with a warm start and applies ``u = udes(t) (+) du_0``.
-This slice ports the condensed, factor-reusing path
-(``reuse_factors=True, condense=True``): the dynamics and initial-condition
-rows are eliminated once on the host (float64), the condensed QP's scaling and
-KKT inverse are computed once, and each fleet step on a common clock costs one
-vectors-only template transcription, a few small GEMMs, one batched solve
-against the shared factors and an affine state recovery.
+Two paths are ported:
+
+- the sparse path (``condense=False``): ``step`` and ``step.fleet`` transcribe
+  every controller at its own clock and state (``torch.func.vmap`` of the
+  transcription) and solve the batch in one ``solve_qp_batch`` call, each
+  member with its own factorization unless ``reuse_factors=True`` and the
+  state group is commutative;
+- the condensed, factor-reusing path (``reuse_factors=True, condense=True``):
+  the dynamics and initial-condition rows are eliminated once on the host
+  (float64), the condensed QP's scaling and KKT inverse are computed once,
+  and each fleet step on a common clock costs one vectors-only template
+  transcription, a few small GEMMs, one batched solve against the shared
+  factors and an affine state recovery.
 """
 
 from __future__ import annotations
@@ -126,6 +133,27 @@ def _not_ported(what: str):
     )
 
 
+def _zero_ws(nvar: int, ncon: int, dtype, device) -> QPSolution:
+    """A zero warm start of the right shapes."""
+    kw = dict(dtype=dtype, device=device)
+    return QPSolution(
+        primal=torch.zeros((nvar,), **kw),
+        dual=torch.zeros((ncon,), **kw),
+        status=torch.tensor(int(QPSolutionStatus.Unknown), dtype=torch.int32, device=device),
+        iters=torch.tensor(0, dtype=torch.int32, device=device),
+        objective=torch.zeros((), **kw),
+        primal_res=torch.full((), float("inf"), **kw),
+        dual_res=torch.full((), float("inf"), **kw),
+    )
+
+
+_ACCEPT = (
+    int(QPSolutionStatus.Optimal),
+    int(QPSolutionStatus.MaxIterations),
+    int(QPSolutionStatus.MaxTime),
+)
+
+
 def make_mpc_step(
     X: LieGroup,
     U: LieGroup,
@@ -141,28 +169,42 @@ def make_mpc_step(
     Kmesh: int = 4,
     dxdes: Optional[Callable] = None,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
     reuse_factors: bool = False,
     time_varying: bool = False,
     validate_reuse: bool = True,
     condense: bool = False,
     static_reference: bool = False,
 ):
-    """Build the functional MPC step (condensed, factor-reusing path).
+    """Build the functional MPC step.
 
     ``f(x, u)`` is the body-velocity dynamics, ``xdes``/``udes`` map absolute
     time (a 0-d tensor) to the reference, ``cr(x, u)`` with bounds
     ``crl``/``cru`` are optional running constraints.  All tensors the
-    callables create must use ``dtype`` and ``device``.
+    callables create must use ``dtype`` and ``device``, and they must run
+    under ``torch.func.vmap`` (no Python branch on tensor values).
+
+    ``reuse_factors=True`` factorizes the template QP (transcribed at
+    ``x = xdes(0)``) once, after checking at a perturbed ``(t, x)`` that P
+    and A do not change away from the initial-condition rows.  For a
+    non-commutative state group those rows carry ``dr_expinv`` of each
+    member's offset, so ``step``/``step.fleet`` still factorize per member.
+    ``condense=True`` (needs ``reuse_factors``) eliminates the states.
 
     Returns ``(step, init_warmstart)``: ``step(warmstart, t, x)`` runs one
-    controller; ``step.fleet_shared_t(warmstarts, t, xs)`` runs a fleet on a
-    common clock; ``step.transcribe``/``step.transcribe_vectors`` expose the
-    QP assembly."""
+    controller; ``step.fleet(warmstarts, ts, xs)`` runs a fleet on
+    per-member clocks (sparse path); ``step.fleet_shared_t(warmstarts, t,
+    xs)`` runs a fleet on a common clock (condensed path);
+    ``step.transcribe``/``step.transcribe_vectors`` expose the QP assembly."""
     if time_varying:
         _not_ported("time_varying=True")
-    if not (reuse_factors and condense):
-        _not_ported("make_mpc_step without reuse_factors=True, condense=True")
+    if condense and not reuse_factors:
+        raise ValueError(
+            "condense=True eliminates states against the one-time template "
+            "and therefore requires reuse_factors=True"
+        )
+    if static_reference and not condense:
+        raise ValueError("static_reference requires condense=True")
 
     kw = dict(dtype=dtype, device=device)
     nx, nu = X.ndof, U.ndof
@@ -227,29 +269,108 @@ def make_mpc_step(
     )
     lay = variable_layout(ocp_probe, mesh)
     N = lay["N"]
+    taus = torch.as_tensor(np.asarray(mesh.all_nodes()), **kw)
 
-    # template at x = xdes(0): the initial-condition block is exactly I there
+    def _finalize(sol: QPSolution, warmstarts: QPSolution, t, du_all, dx_all) -> MPCStepResult:
+        """Result assembly for a fleet: ``t`` is 0-d (common clock) or (B,)
+        (per-member clocks); ``du_all`` (B, N, nu) and ``dx_all`` (B, N+1,
+        nx) are the deviation trajectories of each path's own recovery."""
+        B = int(du_all.shape[0])
+        at = 0 if t.dim() == 1 else None  # vmap axis of the clock
+        ref = (lambda fn: vmap(fn)(t)) if at == 0 else (lambda fn: fn(t))
+        u = vmap(U.rplus, in_dims=(at, 0))(ref(udes), du_all[:, 0])
+
+        # accept the warm start on Optimal / MaxIterations / MaxTime
+        ok = (sol.status == _ACCEPT[0]) | (sol.status == _ACCEPT[1]) | (sol.status == _ACCEPT[2])
+        new_ws = QPSolution(
+            *(
+                torch.where(ok.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+                for new, old in zip(sol, warmstarts)
+            )
+        )
+        if params.return_trajectories:
+            uref = ref(lambda t_: vmap(lambda s: udes(t_ + tf * s))(taus[:N]))
+            xref = ref(lambda t_: vmap(lambda s: xdes(t_ + tf * s))(taus))
+            u_traj = vmap(vmap(U.rplus), in_dims=(at, 0))(uref, du_all)
+            x_traj = vmap(vmap(X.rplus), in_dims=(at, 0))(xref, dx_all)
+        else:
+            u_traj = x_traj = None
+        return MPCStepResult(u=u, status=sol.status, warmstart=new_ws, u_traj=u_traj, x_traj=x_traj)
+
+    def _one(fleet_fn, warmstart: QPSolution, t, x) -> MPCStepResult:
+        """One controller: ``fleet_fn`` on a batch of one."""
+        res = fleet_fn(QPSolution(*(a[None] for a in warmstart)), t, x[None])
+        return MPCStepResult(*(None if a is None else _index0(a) for a in res))
+
     t_zero = torch.zeros((), **kw)
-    qp0 = transcribe(t_zero, xdes(t_zero))
-    if validate_reuse:
-        # a transcription at another time and a perturbed state must give the
-        # same P/A (the IC rows are checked by the condensation)
-        eps = 0.1 * torch.arange(1, nx + 1, **kw) / nx
-        x_probe = X.rplus(X.identity(**kw), eps)
-        qp1 = transcribe(torch.tensor(0.437, **kw), x_probe)
-        tol = 50 * _eps(dtype)
-        ce_rows = torch.as_tensor(lay["cecon_B"] + np.arange(nx), device=device)
-        keep = torch.ones(lay["Ncon"], dtype=torch.bool, device=device)
-        keep[ce_rows] = False
-        for name, a0, a1 in (("P", qp0.P, qp1.P), ("A", qp0.A[keep], qp1.A[keep])):
-            err = float((a1 - a0).abs().max())
-            scale = 1.0 + float(a0.abs().max())
-            if not err <= tol * scale:
-                raise ValueError(
-                    f"reuse_factors: QP matrix {name} is not step-invariant "
-                    f"(max deviation {err:.3e} at a perturbed (t, x))"
+    factors_gen = None
+    if reuse_factors:
+        # template at x = xdes(0): the initial-condition block is exactly I there
+        qp0 = transcribe(t_zero, xdes(t_zero))
+        if validate_reuse:
+            # a transcription at another time and a perturbed state must give
+            # the same P/A away from the IC rows (those vary for a
+            # non-commutative X, see factors_gen below)
+            eps = 0.1 * torch.arange(1, nx + 1, **kw) / nx
+            x_probe = X.rplus(X.identity(**kw), eps)
+            qp1 = transcribe(torch.tensor(0.437, **kw), x_probe)
+            tol = 50 * _eps(dtype)
+            ce_rows = torch.as_tensor(lay["cecon_B"] + np.arange(nx), device=device)
+            keep = torch.ones(lay["Ncon"], dtype=torch.bool, device=device)
+            keep[ce_rows] = False
+            for name, a0, a1 in (("P", qp0.P, qp1.P), ("A", qp0.A[keep], qp1.A[keep])):
+                err = float((a1 - a0).abs().max())
+                scale = 1.0 + float(a0.abs().max())
+                if not err <= tol * scale:
+                    raise ValueError(
+                        f"reuse_factors: QP matrix {name} is not step-invariant "
+                        f"(max deviation {err:.3e} at a perturbed (t, x))"
+                    )
+        if not condense and X.is_commutative():
+            # the full matrices, IC rows included, are step-invariant: every
+            # member's QP iterates against the template's shared factors
+            factors_gen = QPFactors(*(a[0] for a in qp_factorize(
+                QuadraticProgram(*(a[None] for a in qp0)), params.qp
+            )))
+
+    if not condense:
+        uvar_B, xvar_L = lay["uvar_B"], lay["xvar_L"]
+
+        def fleet(warmstarts: QPSolution, ts, xs) -> MPCStepResult:
+            """Batched MPC step on per-member clocks: ``xs`` (B, x-params), ``ts``
+            (B,) or a scalar, ``warmstarts`` a QPSolution with a leading batch
+            axis.  Each member is transcribed at its own (t, x); the batch
+            solves in one ``solve_qp_batch`` call."""
+            with ieee_f32_matmul():
+                B = int(xs.shape[0])
+                ts = torch.as_tensor(ts, **kw).expand(B).contiguous()
+                qps = vmap(transcribe)(ts, xs)
+                if factors_gen is not None:
+                    # shared factors: P and A are the template's for all members
+                    qps = qps._replace(P=qps.P[:1], A=qps.A[:1])
+                sol = solve_qp_batch(
+                    qps, params.qp, warmstarts if params.warmstart else None, factors_gen
+                )
+                return _finalize(
+                    sol, warmstarts, ts,
+                    sol.primal[:, uvar_B:].reshape(B, N, nu),
+                    sol.primal[:, :xvar_L].reshape(B, N + 1, nx),
                 )
 
+        def _no_shared_t(*a, **k):
+            _not_ported("the sparse common-clock fleet step "
+                        "(step.fleet_shared_t with condense=False)")
+
+        def step(warmstart: QPSolution, t, x) -> MPCStepResult:
+            return _one(fleet, warmstart, t, x)
+
+        step.fleet = fleet
+        step.fleet_shared_t = _no_shared_t
+        step.transcribe = transcribe
+        step.transcribe_vectors = transcribe_vectors
+        return step, _zero_ws(lay["Nvar"], lay["Ncon"], dtype, device)
+
+    # the condensed path
     cond = _build_condensation(qp0, lay, dtype, device)
     uL, xL, dL = lay["uvar_L"], lay["xvar_L"], lay["dcon_L"]
     crB, crL = lay["crcon_B"], lay["crcon_L"]
@@ -286,12 +407,6 @@ def make_mpc_step(
     )
     # shared (batch-free) factors: the whole fleet iterates against them
     cond_factors = QPFactors(*(a[0] for a in qp_factorize(qc0, params.qp)))
-    taus = torch.as_tensor(np.asarray(mesh.all_nodes()), **kw)
-    _accept = (
-        int(QPSolutionStatus.Optimal),
-        int(QPSolutionStatus.MaxIterations),
-        int(QPSolutionStatus.MaxTime),
-    )
 
     def _condensed_qp(t, xs):
         """The fleet's condensed QPs at clock ``t`` (P and A shared, leading
@@ -331,41 +446,11 @@ def make_mpc_step(
             # offset of the eliminated states)
             off = 0.5 * torch.einsum("bi,ij,bj->b", wx, cond["P_xx"], wx) + wx @ qx
             sol = sol._replace(objective=sol.objective + off)
-
-            du_all = sol.primal.reshape(B, N, nu)
-            ud = udes(t)
-            u = vmap(lambda d: U.rplus(ud, d))(du_all[:, 0])
-
-            ok = (
-                (sol.status == _accept[0]) | (sol.status == _accept[1]) | (sol.status == _accept[2])
+            return _finalize(
+                sol, warmstarts, t,
+                sol.primal.reshape(B, N, nu),
+                (sol.primal @ cond["Wx"].T + wx).reshape(B, N + 1, nx),
             )
-            new_ws = QPSolution(
-                *(
-                    torch.where(ok.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
-                    for new, old in zip(sol, warmstarts)
-                )
-            )
-            if params.return_trajectories:
-                dx_all = (sol.primal @ cond["Wx"].T + wx).reshape(B, N + 1, nx)
-                uref = vmap(lambda s: udes(t + tf * s))(taus[:N])  # (N, u-params)
-                xref = vmap(lambda s: xdes(t + tf * s))(taus)  # (N+1, x-params)
-                u_traj = vmap(vmap(U.rplus), in_dims=(None, 0))(uref, du_all)
-                x_traj = vmap(vmap(X.rplus), in_dims=(None, 0))(xref, dx_all)
-            else:
-                u_traj = x_traj = None
-            return MPCStepResult(
-                u=u, status=sol.status, warmstart=new_ws, u_traj=u_traj, x_traj=x_traj
-            )
-
-    def step(warmstart: QPSolution, t, x) -> MPCStepResult:
-        res = fleet_shared_t_condensed(QPSolution(*(a[None] for a in warmstart)), t, x[None])
-        return MPCStepResult(
-            u=res.u[0],
-            status=res.status[0],
-            warmstart=QPSolution(*(a[0] for a in res.warmstart)),
-            u_traj=None if res.u_traj is None else res.u_traj[0],
-            x_traj=None if res.x_traj is None else res.x_traj[0],
-        )
 
     def _no_fleet(*a, **k):
         raise NotImplementedError(
@@ -374,21 +459,20 @@ def make_mpc_step(
             "transcriptions, which defeats condensation"
         )
 
+    def step(warmstart: QPSolution, t, x) -> MPCStepResult:
+        return _one(fleet_shared_t_condensed, warmstart, t, x)
+
     step.fleet = _no_fleet
     step.fleet_shared_t = fleet_shared_t_condensed
     step.condensed_qp = lambda t, xs: _condensed_qp(torch.as_tensor(t, **kw), xs)[0]
     step.factors = cond_factors
     step.transcribe = transcribe
     step.transcribe_vectors = transcribe_vectors
+    return step, _zero_ws(uL, max(crL, 1), dtype, device)
 
-    ncon = max(crL, 1)
-    ws0 = QPSolution(
-        primal=torch.zeros((uL,), **kw),
-        dual=torch.zeros((ncon,), **kw),
-        status=torch.tensor(int(QPSolutionStatus.Unknown), dtype=torch.int32, device=device),
-        iters=torch.tensor(0, dtype=torch.int32, device=device),
-        objective=torch.zeros((), **kw),
-        primal_res=torch.full((), float("inf"), **kw),
-        dual_res=torch.full((), float("inf"), **kw),
-    )
-    return step, ws0
+
+def _index0(a):
+    """Member 0 of a batched field (a tensor or a QPSolution)."""
+    if isinstance(a, torch.Tensor):
+        return a[0]
+    return type(a)(*(f[0] for f in a))

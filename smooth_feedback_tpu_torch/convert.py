@@ -2,8 +2,9 @@
 
 State made elsewhere (for example the JAX package's arrays, passed through
 ``np.asarray``) enters the port through these, so both packages solve the
-same problems from the same warm starts.  Each takes an explicit ``device``
-and ``dtype``; integer fields (status, iters) stay int32.
+same problems from the same warm starts.  Each takes a ``device`` (the card
+unless told otherwise, like every entry point of the port) and a ``dtype``;
+integer fields (status, iters) stay int32.
 """
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ def _t(a, device, dtype):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def qp_from_numpy(qp, device="cpu", dtype=torch.float64) -> QuadraticProgram:
+def qp_from_numpy(qp, device="cuda", dtype=torch.float64) -> QuadraticProgram:
     """``(P, q, A, l, u)`` arrays (any leading batch axes) -> QuadraticProgram."""
     return QuadraticProgram(*(_t(a, device, dtype) for a in qp))
 
 
-def factors_from_numpy(factors, device="cpu", dtype=torch.float64) -> QPFactors:
+def factors_from_numpy(factors, device="cuda", dtype=torch.float64) -> QPFactors:
     """A QPFactors-like tuple of arrays (c, sx, sy, rho, Ps, As, Mred, Minv,
     fact_ok) -> QPFactors."""
     c, sx, sy, rho, Ps, As, Mred, Minv, fact_ok = factors
@@ -35,7 +36,7 @@ def factors_from_numpy(factors, device="cpu", dtype=torch.float64) -> QPFactors:
     )
 
 
-def solution_from_numpy(sol, device="cpu", dtype=torch.float64) -> QPSolution:
+def solution_from_numpy(sol, device="cuda", dtype=torch.float64) -> QPSolution:
     """A QPSolution-like tuple of arrays -> QPSolution (e.g. a warm start)."""
     primal, dual, status, iters, objective, pres, dres = sol
     return QPSolution(
@@ -49,6 +50,6 @@ def solution_from_numpy(sol, device="cpu", dtype=torch.float64) -> QPSolution:
     )
 
 
-def weights_from_numpy(weights, device="cpu", dtype=torch.float64) -> MPCWeights:
+def weights_from_numpy(weights, device="cuda", dtype=torch.float64) -> MPCWeights:
     """``(Q, Qtf, R)`` arrays -> MPCWeights."""
     return MPCWeights(*(_t(a, device, dtype) for a in weights))

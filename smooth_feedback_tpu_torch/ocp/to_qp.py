@@ -81,7 +81,7 @@ def ocp_to_qp(
     dxl_fun: Optional[Callable] = None,
     *,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> QuadraticProgram:
     """Dense QP linearizing ``ocp`` around ``(xl_fun, ul_fun)``, assembled in
     ``dtype`` on ``device``.  ``dxl_fun(t) -> (nx,)`` optionally supplies the
@@ -98,7 +98,7 @@ def ocp_to_qp_vectors(
     dxl_fun: Optional[Callable] = None,
     *,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Only the ``(q, l, u)`` vectors of :func:`ocp_to_qp`: function values
     and cost gradients at the nodes, no Jacobians or Hessians.  For problem

@@ -1,7 +1,14 @@
 """Batched dense QP solving (PyTorch port)."""
 
-from .cuda_kernel import admm_iterate_cuda_shared, admm_iterate_shared_reference
-from .solver import QPFactors, qp_factorize, shared_kernel_args, solve_qp, solve_qp_batch
+from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared, admm_iterate_reference
+from .solver import (
+    QPFactors,
+    per_problem_kernel_args,
+    qp_factorize,
+    shared_kernel_args,
+    solve_qp,
+    solve_qp_batch,
+)
 from .types import (
     QPSolution,
     QPSolutionStatus,
@@ -20,7 +27,9 @@ __all__ = [
     "solve_qp",
     "solve_qp_batch",
     "shared_kernel_args",
+    "per_problem_kernel_args",
     "warmstart_like",
+    "admm_iterate_cuda",
     "admm_iterate_cuda_shared",
-    "admm_iterate_shared_reference",
+    "admm_iterate_reference",
 ]

@@ -1,48 +1,58 @@
-"""Shared-matrix fused ADMM iteration: CUDA kernel wrapper and plain version.
+"""Fused ADMM iteration: the CUDA kernels' wrappers and their plain version.
 
-The kernel (``csrc/admm_shared.cu``) replaces the TPU kernel
-``smooth_feedback_tpu/qp/pallas_kernel.py::_admm_kernel_shared`` (called
-through ``admm_iterate_pallas_shared``).  Every problem of the batch shares the
-scaled ``Minv``, ``As`` and ``Ps``; each has its own vectors and warm start.
+Two kernels, one per TPU kernel of ``smooth_feedback_tpu/qp/pallas_kernel.py``:
 
-On an H100 the kernel is bound by latency and FMA issue rate, not by HBM: the
-three shared matrices stay resident in shared memory for the whole solve and
-every problem's vectors stay in registers, so device memory sees one read of
-the inputs and one write of the outputs.  The design answers that with one
-warp per problem, each running its own loop and exiting on its own (a
-member's result does not depend on the rest of its block, so this equals the
-TPU kernel's block-lockstep semantics), and with many warps resident per SM
-to hide the latency of the dependent product chain.  Each lane accumulates its
-own outputs with fp32 FMAs; matrices are stored with an odd row stride, so
-both row and column reads are free of bank conflicts.
+- ``csrc/admm_shared.cu`` replaces ``_admm_kernel_shared`` (called through
+  ``admm_iterate_pallas_shared``): every problem of the batch shares the
+  scaled ``Minv``, ``As`` and ``Ps``; each has its own vectors and warm start.
+  On an H100 it is bound by latency and FMA issue rate, not by HBM: the three
+  shared matrices stay resident in shared memory for the whole solve and
+  every problem's vectors stay in registers.  One warp per problem, each
+  running its own loop and exiting on its own (a member's result does not
+  depend on the rest of its block, so this equals the TPU kernel's
+  block-lockstep semantics), many warps resident per SM to hide the latency
+  of the dependent product chain, fp32 FMAs, and an odd row stride so row and
+  column reads are free of bank conflicts.
+- ``csrc/admm_problem.cu`` replaces ``_admm_kernel`` (called through
+  ``admm_iterate_pallas``): every problem carries its own ``Minv``, ``As``,
+  ``Ps``, ``rho``, ``sx``, ``sy`` and ``c``.  One thread block per problem;
+  the matrices do not fit a block's shared memory at the sizes it serves, so
+  they stream from device memory (bound by bytes; see the source's note).
 
-:func:`admm_iterate_cuda_shared` launches the kernel on CUDA tensors and runs
-:func:`admm_iterate_shared_reference` on CPU tensors; nothing else chooses
-the plain version.  Its ``launches`` attribute counts kernel launches.
+:func:`admm_iterate_cuda_shared` and :func:`admm_iterate_cuda` launch their
+kernel on CUDA tensors and run :func:`admm_iterate_reference` on CPU tensors;
+nothing else chooses the plain version.  Each has a ``launches`` attribute
+that counts kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .solver import _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, _norm_inf
+from .solver import (
+    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, _mtv, _mv, _norm_inf,
+)
 from .types import QPSolverParams
 
 # what one block may hold on an H100 (232,448 bytes of shared memory)
 SMEM_LIMIT = 232448
-MAX_DIM = 128  # entries per lane are instantiated up to 4 (csrc: K <= 4)
-MAX_BLOCK = 8  # warps per block (csrc: __launch_bounds__(256))
+MAX_DIM = 128  # shared kernel: entries per lane are instantiated up to 4 (K <= 4)
+MAX_BLOCK = 8  # shared kernel: warps per block (__launch_bounds__(256))
+PROBLEM_WARPS = 8  # per-problem kernel: warps per block, one block per problem
+PROBLEM_STATIC_SMEM = 4 * 10 * 8  # its block-reduction scratch
 
 
-def admm_iterate_shared_reference(
+def admm_iterate_reference(
     prm: QPSolverParams, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0
 ):
-    """Plain batched torch version of the shared-matrix ADMM loop (any dtype).
+    """Plain batched torch version of the fused ADMM loop (any dtype).
 
-    Same updates, stopping check, certificates and freeze semantics as the
-    kernel; the shared matrices stay 2-D, so every product is one
-    ``(B, k) @ (k, j)`` GEMM.  Returns ``(x, z, y, status, iters, pres,
-    dres)`` in scaled variables."""
+    The matrices are either shared by the batch (``Minv``/``Ps`` (n, n),
+    ``As`` (m, n), ``rho``/``sy`` (m,), ``sx`` (n,), ``c`` 0-d: every product
+    is one ``(B, k) @ (k, j)`` GEMM) or per problem (a leading batch axis on
+    each: batched products).  Same updates, stopping check, certificates and
+    freeze semantics as the kernels.  Returns ``(x, z, y, status, iters,
+    pres, dres)`` in scaled variables."""
     B = qs.shape[0]
     dt, dev = qs.dtype, qs.device
     inf = torch.tensor(float("inf"), dtype=dt, device=dev)
@@ -50,6 +60,8 @@ def admm_iterate_shared_reference(
     eps_abs, eps_rel = prm.eps_abs, prm.eps_rel
     eps_pinf, eps_dinf = prm.eps_primal_inf, prm.eps_dual_inf
     k = prm.stop_check_iter
+    if c.dim() == 1:  # per problem: broadcast against (B, .) vectors
+        c = c[:, None]
 
     mu_inf = u >= inf
     ml_inf = l <= -inf
@@ -57,16 +69,15 @@ def admm_iterate_shared_reference(
     lv_fin = torch.where(ml_inf, 0.0, l)
     inv_sy = 1.0 / sy
     inv_csx = 1.0 / (c * sx)
-    AsT, PsT = As.T, Ps.T
 
     def check(x, z, y, x_old, y_old):
-        Ax = (x @ AsT) * inv_sy
+        Ax = _mv(As, x) * inv_sy
         z_us = z * inv_sy
         pres = _norm_inf(Ax - z_us)
         prim_ok = pres <= eps_abs + eps_rel * torch.maximum(_norm_inf(Ax), _norm_inf(z_us))
 
-        Px = (x @ PsT) * inv_csx
-        Aty = (y @ As) * inv_csx
+        Px = _mv(Ps, x) * inv_csx
+        Aty = _mtv(As, y) * inv_csx
         qv = qs * inv_csx
         dres = _norm_inf(Px + qv + Aty)
         dscale = torch.maximum(_norm_inf(Px), torch.maximum(_norm_inf(qv), _norm_inf(Aty)))
@@ -75,7 +86,7 @@ def admm_iterate_shared_reference(
 
         dy_us = sy * (y - y_old) / c
         E = _norm_inf(dy_us)[:, None]
-        Atdy = ((y - y_old) @ As) * inv_csx
+        Atdy = _mtv(As, y - y_old) * inv_csx
         viol = ((mu_inf & (dy_us > eps_pinf * E)) | (ml_inf & (dy_us < -eps_pinf * E))).any(dim=1)
         sum_term = (
             uv_fin * torch.clamp(dy_us, min=0.0) + lv_fin * torch.clamp(dy_us, max=0.0)
@@ -84,8 +95,8 @@ def admm_iterate_shared_reference(
 
         dx_us = sx * (x - x_old)
         dxn = _norm_inf(dx_us)
-        Pdx = ((x - x_old) @ PsT) * inv_csx
-        Adx = ((x - x_old) @ AsT) * inv_sy
+        Pdx = _mv(Ps, x - x_old) * inv_csx
+        Adx = _mv(As, x - x_old) * inv_sy
         tol = (eps_dinf * dxn)[:, None]
         row_ok = torch.where(
             mu_inf, Adx >= -tol, torch.where(ml_inf, Adx <= tol, Adx.abs() < tol)
@@ -110,9 +121,9 @@ def admm_iterate_shared_reference(
     it = 0
     while it < prm.max_iter and bool((status == _RUNNING).any()):
         x_old, y_old = x, y
-        rhs = sigma * x - qs + (rho * z - y) @ As
-        xt = rhs @ Minv
-        zt = xt @ AsT
+        rhs = sigma * x - qs + _mtv(As, rho * z - y)
+        xt = _mtv(Minv, rhs)
+        zt = _mv(As, xt)
 
         xn = alpha * xt + (1 - alpha) * x
         zr = alpha * zt + (1 - alpha) * z
@@ -141,18 +152,28 @@ def admm_iterate_shared_reference(
 
 
 def smem_bytes(n: int, m: int, warps: int) -> int:
-    """Shared memory one block of the kernel needs (mirrors the C function)."""
+    """Shared memory one block of the shared kernel needs (mirrors the C
+    function in csrc/admm_shared.cu)."""
     ld = n | 1
     K = (max(n, m) + 31) // 32
     return 4 * (ld * (2 * n + m) + warps * 32 * K)
 
 
-def _check_args(prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0):
+def problem_smem_bytes(n: int, m: int) -> int:
+    """Dynamic shared memory one block of the per-problem kernel needs
+    (mirrors the C function in csrc/admm_problem.cu)."""
+    return 4 * (8 * n + 13 * m)
+
+
+def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0,
+                status0):
     B, n = qs.shape
     m = ls.shape[1]
+    lead = (B,) if per_problem else ()
     shapes = {
-        "Minv": (Minv, (n, n)), "As": (As, (m, n)), "Ps": (Ps, (n, n)),
-        "rho": (rho, (m,)), "sx": (sx, (n,)), "sy": (sy, (m,)), "c": (c, ()),
+        "Minv": (Minv, lead + (n, n)), "As": (As, lead + (m, n)), "Ps": (Ps, lead + (n, n)),
+        "rho": (rho, lead + (m,)), "sx": (sx, lead + (n,)), "sy": (sy, lead + (m,)),
+        "c": (c, lead),
         "qs": (qs, (B, n)), "ls": (ls, (B, m)), "us": (us, (B, m)),
         "l": (l, (B, m)), "u": (u, (B, m)),
         "x0": (x0, (B, n)), "z0": (z0, (B, m)), "y0": (y0, (B, m)),
@@ -173,17 +194,61 @@ def _check_args(prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0,
         raise ValueError("status0 must be int32 of shape (B,)")
     if status0.device != dev or not status0.is_contiguous():
         raise ValueError("status0 must be contiguous and on the problems' device")
-    if not 1 <= prm.kernel_block <= MAX_BLOCK:
-        raise ValueError(f"kernel_block must be in [1, {MAX_BLOCK}], got {prm.kernel_block}")
     if prm.stop_check_iter < 1:
         raise ValueError("stop_check_iter must be >= 1")
-    if max(n, m) > MAX_DIM or smem_bytes(n, m, prm.kernel_block) > SMEM_LIMIT:
-        raise ValueError(
-            f"the shared-matrix kernel cannot hold n={n}, m={m}: it needs "
-            f"max(n, m) <= {MAX_DIM} and {smem_bytes(n, m, prm.kernel_block)} "
-            f"<= {SMEM_LIMIT} bytes of shared memory"
-        )
+    if per_problem:
+        need = problem_smem_bytes(n, m) + PROBLEM_STATIC_SMEM
+        if need > SMEM_LIMIT:
+            raise ValueError(
+                f"the per-problem kernel cannot hold n={n}, m={m}: its vectors need "
+                f"{need} <= {SMEM_LIMIT} bytes of shared memory"
+            )
+    else:
+        if not 1 <= prm.kernel_block <= MAX_BLOCK:
+            raise ValueError(f"kernel_block must be in [1, {MAX_BLOCK}], got {prm.kernel_block}")
+        if max(n, m) > MAX_DIM or smem_bytes(n, m, prm.kernel_block) > SMEM_LIMIT:
+            raise ValueError(
+                f"the shared-matrix kernel cannot hold n={n}, m={m}: it needs "
+                f"max(n, m) <= {MAX_DIM} and {smem_bytes(n, m, prm.kernel_block)} "
+                f"<= {SMEM_LIMIT} bytes of shared memory"
+            )
     return B, n, m
+
+
+def _launch(fn_name, warps, prm, args, B, n, m):
+    """Allocate the outputs and launch ``fn_name`` of the kernels' library on
+    the problems' device and current stream; raise on a non-zero CUDA code."""
+    from .. import _build
+
+    Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0 = args
+    dev = qs.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (
+        torch.empty((B, n), **f32), torch.empty((B, m), **f32), torch.empty((B, m), **f32),
+        torch.empty((B,), **i32), torch.empty((B,), **i32),
+        torch.empty((B,), **f32), torch.empty((B,), **f32),
+    )
+    fn = getattr(_build.load(), fn_name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in (Minv, As, Ps, rho, sx, sy, c, qs, ls, us, l, u, x0, z0, y0, status0)),
+            *(t.data_ptr() for t in outs),
+            B, n, m, warps,
+            prm.alpha, prm.sigma, prm.eps_abs, prm.eps_rel,
+            prm.eps_primal_inf, prm.eps_dual_inf,
+            prm.max_iter, prm.stop_check_iter, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+    return outs
+
+
+def _device_type(qs):
+    if qs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {qs.device}")
+    return qs.device.type
 
 
 def admm_iterate_cuda_shared(
@@ -191,42 +256,38 @@ def admm_iterate_cuda_shared(
 ):
     """Shared-matrix fused ADMM on float32 tensors.
 
-    CUDA tensors launch the hand-written kernel (or raise); CPU tensors run
-    :func:`admm_iterate_shared_reference`.  ``c`` is a 0-d tensor.  Returns
-    ``(x, z, y, status, iters, pres, dres)`` in scaled variables."""
+    CUDA tensors launch ``csrc/admm_shared.cu`` (or raise); CPU tensors run
+    :func:`admm_iterate_reference`.  ``Minv``/``Ps`` (n, n), ``As`` (m, n),
+    ``rho``/``sy`` (m,), ``sx`` (n,), ``c`` 0-d.  Returns ``(x, z, y, status,
+    iters, pres, dres)`` in scaled variables."""
     args = (Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0)
-    B, n, m = _check_args(prm, *args)
-    if qs.device.type == "cpu":
-        return admm_iterate_shared_reference(prm, *args)
-    if qs.device.type != "cuda":
-        raise ValueError(f"unsupported device {qs.device}")
-
-    from .. import _build
-
-    lib = _build.load()
-    f32 = dict(dtype=torch.float32, device=qs.device)
-    i32 = dict(dtype=torch.int32, device=qs.device)
-    x = torch.empty((B, n), **f32)
-    z = torch.empty((B, m), **f32)
-    y = torch.empty((B, m), **f32)
-    status = torch.empty((B,), **i32)
-    iters = torch.empty((B,), **i32)
-    pres = torch.empty((B,), **f32)
-    dres = torch.empty((B,), **f32)
-    with torch.cuda.device(qs.device):
-        stream = torch.cuda.current_stream(qs.device).cuda_stream
-        err = lib.admm_shared_launch(
-            *(t.data_ptr() for t in (Minv, As, Ps, rho, sx, sy, c, qs, ls, us, l, u, x0, z0, y0, status0)),
-            *(t.data_ptr() for t in (x, z, y, status, iters, pres, dres)),
-            B, n, m, prm.kernel_block,
-            prm.alpha, prm.sigma, prm.eps_abs, prm.eps_rel,
-            prm.eps_primal_inf, prm.eps_dual_inf,
-            prm.max_iter, prm.stop_check_iter, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"admm_shared kernel launch failed: CUDA error {err}")
+    B, n, m = _check_args(False, prm, *args)
+    if _device_type(qs) == "cpu":
+        return admm_iterate_reference(prm, *args)
+    outs = _launch("admm_shared_launch", prm.kernel_block, prm, args, B, n, m)
     admm_iterate_cuda_shared.launches += 1
-    return x, z, y, status, iters, pres, dres
+    return outs
 
 
 admm_iterate_cuda_shared.launches = 0
+
+
+def admm_iterate_cuda(
+    prm: QPSolverParams, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0
+):
+    """Per-problem fused ADMM on float32 tensors.
+
+    CUDA tensors launch ``csrc/admm_problem.cu`` (or raise); CPU tensors run
+    :func:`admm_iterate_reference`.  ``Minv``/``Ps`` (B, n, n), ``As`` (B, m,
+    n), ``rho``/``sy`` (B, m), ``sx`` (B, n), ``c`` (B,).  Returns ``(x, z,
+    y, status, iters, pres, dres)`` in scaled variables."""
+    args = (Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0)
+    B, n, m = _check_args(True, prm, *args)
+    if _device_type(qs) == "cpu":
+        return admm_iterate_reference(prm, *args)
+    outs = _launch("admm_problem_launch", PROBLEM_WARPS, prm, args, B, n, m)
+    admm_iterate_cuda.launches += 1
+    return outs
+
+
+admm_iterate_cuda.launches = 0

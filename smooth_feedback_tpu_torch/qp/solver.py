@@ -10,8 +10,10 @@ Shared factors (``qp_factorize`` of one template, no batch axis on
 ``Minv``) keep ``P``, ``A`` and ``Minv`` 2-D, so every product is one
 ``(B, k) @ (k, j)`` GEMM and no batch of copies is materialized.
 
-Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs the
-shared-matrix kernel of ``qp/cuda_kernel.py`` (shared factors only).
+Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs a kernel of
+``qp/cuda_kernel.py``: the shared-matrix kernel against shared factors, the
+per-problem kernel against per-problem factors or none (then every member is
+scaled and factorized here first, in torch).
 """
 
 from __future__ import annotations
@@ -347,7 +349,7 @@ def shared_kernel_args(
     for a batch ``qp`` against shared ``factors`` (no batch axis): the
     factors, the scaled vectors, the scaled warm start and the initial
     statuses, as contiguous float32 (int32 statuses).  The plain version
-    ``admm_iterate_shared_reference`` takes the same arguments."""
+    ``admm_iterate_reference`` takes the same arguments."""
     P, q, A, l, u, shared = _batch_view(qp, factors)
     if not shared:
         raise ValueError("shared_kernel_args needs shared (batch-free) factors")
@@ -357,16 +359,34 @@ def shared_kernel_args(
     return _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
 
 
+def per_problem_kernel_args(
+    qp: QuadraticProgram,
+    factors: Optional[QPFactors] = None,
+    warmstart: Optional[QPSolution] = None,
+    prm: QPSolverParams = QPSolverParams(),
+):
+    """What :func:`solve_qp_batch` on ``backend="cuda"`` hands
+    ``admm_iterate_cuda`` after ``prm``, for a batch ``qp`` against
+    per-problem ``factors`` (a leading batch axis) or, without factors,
+    against each member's own scaling and factorization under ``prm``.  The
+    plain version ``admm_iterate_reference`` takes the same arguments."""
+    P, q, A, l, u, shared = _batch_view(qp, factors)
+    if shared:
+        raise ValueError("per_problem_kernel_args needs per-problem factors (or none)")
+    with ieee_f32_matmul():
+        if factors is None:
+            factors = _factorize(P, q, A, l, u, prm)
+        _, _, _, qs, ls, us, x0, z0, y0, status0 = _scaled_inputs(
+            A, q, l, u, factors, warmstart, False
+        )
+        return _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
+
+
 def _solve_qp_batch_impl(qp, prm, warmstart, factors):
     P, q, A, l, u, shared = _batch_view(qp, factors)
     dt, dev = A.dtype, A.device
     B = q.shape[0]
     inf = float("inf")
-    if prm.backend == "cuda" and not shared:
-        _not_ported(
-            "backend='cuda' with per-problem factors (the per-problem kernel)",
-            "ROADMAP Queue 2 item 2",
-        )
     if factors is None:
         factors = _factorize(P, q, A, l, u, prm)
     c, sx, sy, rho, Ps, As, Mred, Minv, fact_ok = factors
@@ -375,24 +395,30 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
     )
 
     if prm.backend == "cuda":
-        from .cuda_kernel import admm_iterate_cuda_shared
+        from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared
 
-        # sort_stragglers: a pure batch permutation, inverted on the way out
-        do_sort = prm.sort_stragglers and warmstart is not None
-        if do_sort:
-            perm = torch.argsort(warmstart.iters, stable=True)
-            inv_perm = torch.argsort(perm)
-            qs, ls, us, l_s, u_s, x0, z0, y0, status0 = (
-                a[perm] for a in (qs, ls, us, l, u, x0, z0, y0, status0)
+        if shared:
+            # sort_stragglers: a pure batch permutation, inverted on the way out
+            do_sort = prm.sort_stragglers and warmstart is not None
+            if do_sort:
+                perm = torch.argsort(warmstart.iters, stable=True)
+                inv_perm = torch.argsort(perm)
+                qs, ls, us, l_s, u_s, x0, z0, y0, status0 = (
+                    a[perm] for a in (qs, ls, us, l, u, x0, z0, y0, status0)
+                )
+            else:
+                l_s, u_s = l, u
+            x, z, y, status, iters, pres, dres = admm_iterate_cuda_shared(
+                prm, *_kernel_args(factors, qs, ls, us, l_s, u_s, x0, z0, y0, status0)
             )
+            if do_sort:
+                x, z, y, status, iters, pres, dres = (
+                    a[inv_perm] for a in (x, z, y, status, iters, pres, dres)
+                )
         else:
-            l_s, u_s = l, u
-        x, z, y, status, iters, pres, dres = admm_iterate_cuda_shared(
-            prm, *_kernel_args(factors, qs, ls, us, l_s, u_s, x0, z0, y0, status0)
-        )
-        if do_sort:
-            x, z, y, status, iters, pres, dres = (
-                a[inv_perm] for a in (x, z, y, status, iters, pres, dres)
+            # each member exits on its own: no straggler sort on this route
+            x, z, y, status, iters, pres, dres = admm_iterate_cuda(
+                prm, *_kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
             )
         return _finalize_solution(
             P, q, cB, sxB, syB, x.to(dt), y.to(dt), status, iters, pres.to(dt), dres.to(dt)

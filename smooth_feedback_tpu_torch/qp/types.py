@@ -61,10 +61,12 @@ class QPSolverParams:
 
     ``backend``:
       ``"torch"`` the plain batched loop (any dtype, any device);
-      ``"cuda"``  the hand-written shared-matrix CUDA kernel
-                  (``qp/cuda_kernel.py``, float32, shared factors only).  On
-                  CPU tensors its wrapper runs the kernel's plain version.
-    ``kernel_block``: problems per CUDA thread block (one warp each).
+      ``"cuda"``  the hand-written CUDA kernels (``qp/cuda_kernel.py``,
+                  float32): the shared-matrix kernel against shared factors,
+                  the per-problem kernel otherwise.  On CPU tensors their
+                  wrappers run the kernels' plain version.
+    ``kernel_block``: problems per thread block of the shared-matrix kernel
+    (one warp each); the per-problem kernel runs one problem per block.
     """
 
     alpha: float = 1.6

@@ -1,4 +1,5 @@
-"""The shared-matrix CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (shared-matrix and per-problem ADMM) against their plain
+PyTorch version, on the card.
 
 These tests need a CUDA device and nvcc; elsewhere they skip.  They import no
 JAX, so they also run where only the port's dependencies are installed:
@@ -10,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import problem_family
 from smooth_feedback_tpu_torch.convert import qp_from_numpy
 from smooth_feedback_tpu_torch.qp import (
     QPSolutionStatus,
     QPSolverParams,
+    admm_iterate_cuda,
     admm_iterate_cuda_shared,
-    admm_iterate_shared_reference,
+    admm_iterate_reference,
+    per_problem_kernel_args,
     qp_factorize,
     solve_qp_batch,
 )
@@ -46,7 +50,7 @@ def _inputs(n, m, B, seed, dev):
     l[2, 0], u[2, 1] = -np.inf, np.inf
     q = rng.standard_normal((B, n))
     prm = QPSolverParams(polish=False, rho=2.0, rho_eq_scale=15.0)
-    f = qp_factorize(qp_from_numpy((P[None], q[:1], A[None], l[:1], u[:1])), prm)
+    f = qp_factorize(qp_from_numpy((P[None], q[:1], A[None], l[:1], u[:1]), device="cpu"), prm)
     f = [a[0] for a in f]
     c, sx, sy, rho, Ps, As, _, Minv, _ = f
     f32 = lambda t: torch.as_tensor(t, dtype=torch.float32).to(dev).contiguous()
@@ -80,7 +84,7 @@ def test_kernel_iterates_match_plain_version(dev, n, m, block):
                          stop_check_iter=10, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
                          eps_dual_inf=0.0, backend="cuda", kernel_block=block)
     k = admm_iterate_cuda_shared(prm, *args)
-    r = admm_iterate_shared_reference(prm, *args)
+    r = admm_iterate_reference(prm, *args)
     torch.cuda.synchronize()
     assert torch.equal(k[3], r[3]) and torch.equal(k[4], r[4])
     assert int((k[3] == QPSolutionStatus.MaxIterations).sum()) == 999
@@ -123,8 +127,8 @@ def test_kernel_statuses_match_plain_version(dev, n, m, block, stop_check_iter):
     admm_iterate_cuda_shared.launches = 0
     k = admm_iterate_cuda_shared(prm, *args)
     assert admm_iterate_cuda_shared.launches == 1
-    r = admm_iterate_shared_reference(prm, *args)
-    d = admm_iterate_shared_reference(prm, *(a.double() if a.is_floating_point() else a for a in args))
+    r = admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *(a.double() if a.is_floating_point() else a for a in args))
     torch.cuda.synchronize()
     assert float((k[3] == r[3]).float().mean()) >= 0.999
     ki, ri = float(k[4].float().mean()), float(r[4].float().mean())
@@ -184,3 +188,134 @@ def test_solver_cuda_backend_goes_through_kernel(dev):
     assert admm_iterate_cuda_shared.launches == 1
     assert float((sc.status == st.status).float().mean()) >= 0.99
     assert bool((sc.status == 0).all())
+
+
+# ------------------------------------------------------ per-problem kernel
+
+
+def _problem_inputs(n, m, B, seed, dev, prm):
+    """Per-problem kernel inputs for problem_family, scaled and factorized
+    in f64 by the port on the CPU and cast to f32; member 1 starts
+    PrimalInfeasible."""
+    qp = qp_from_numpy(problem_family(n, m, B, seed), device="cpu")
+    args = [a.to(dev) for a in per_problem_kernel_args(qp, prm=prm)]
+    args[15][1] = int(QPSolutionStatus.PrimalInfeasible)
+    return args
+
+
+PROBLEM_SHAPES = [
+    (7, 9, 500),  # fewer rows and columns than a warp
+    (64, 64, 256),
+    (163, 99, 256),  # the per-member-clock vehicle fleet's QP
+    (600, 600, 8),  # vectors beyond 48 KB of shared memory
+]
+
+
+@pytest.mark.parametrize("n,m,B", PROBLEM_SHAPES)
+def test_problem_kernel_iterates_match_plain_version(dev, n, m, B):
+    """With stopping disabled (all tolerances 0) both run exactly 20
+    iterations, so the iterates compare directly: within 1e-3 (f32 with
+    another summation order and FMA contraction)."""
+    prm = QPSolverParams(polish=False, max_iter=20, stop_check_iter=10, eps_abs=0.0,
+                         eps_rel=0.0, eps_primal_inf=0.0, eps_dual_inf=0.0, backend="cuda")
+    args = _problem_inputs(n, m, B, seed=n + m, dev=dev, prm=prm)
+    # the dual-infeasible member's certificate holds even at tolerance 0
+    args[15][4] = int(QPSolutionStatus.DualInfeasible)
+    k = admm_iterate_cuda(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], r[3]) and torch.equal(k[4], r[4])
+    run = torch.ones(B, dtype=torch.bool, device=dev)
+    run[[1, 4]] = False
+    assert bool((k[3][run] == QPSolutionStatus.MaxIterations).all())
+    for kt, rt in zip(k[:3], r[:3]):
+        torch.testing.assert_close(kt[run], rt[run], atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("n,m,B", PROBLEM_SHAPES[:3])
+@pytest.mark.parametrize("stop_check_iter", [1, 10])
+def test_problem_kernel_statuses_match_plain_version(dev, n, m, B, stop_check_iter):
+    """With the stopping check on: statuses agree for all but 0.1% of
+    members (all members when B < 1000; at 600x600 even the f32 and f64
+    plain versions split on the primal-infeasible member, so that shape
+    runs only the fixed-iteration test), mean iteration counts within 2%,
+    the kernel matches an f64 plain run's iteration counts within 5 points
+    as often as the f32 plain version does (the bound of the shared kernel's
+    test, for the same f32 rounding at a check's threshold); where iteration
+    counts agree the iterates of members with a bounded solution are within
+    1e-3; every certificate fires on
+    its member; the member that started PrimalInfeasible comes back
+    untouched; the kernel launched once."""
+    prm = QPSolverParams(polish=False, max_iter=1500, stop_check_iter=stop_check_iter,
+                         backend="cuda")
+    args = _problem_inputs(n, m, B, seed=n + m, dev=dev, prm=prm)
+    admm_iterate_cuda.launches = 0
+    k = admm_iterate_cuda(prm, *args)
+    assert admm_iterate_cuda.launches == 1
+    r = admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *(a.double() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    assert int((k[3] != r[3]).sum()) <= int(0.001 * B)
+    ki, ri = float(k[4].float().mean()), float(r[4].float().mean())
+    assert abs(ki - ri) <= 0.02 * ri
+    eq_iters = lambda a, b: float((a[4] == b[4]).float().mean())
+    assert eq_iters(k, d) >= eq_iters(r, d) - 0.05
+    # a dual-infeasible member's iterates run off along a ray (|x| ~ 1e6
+    # here), where f32 rounding alone exceeds any absolute bound
+    same = (k[3] == r[3]) & (k[4] == r[4]) & (k[3] != QPSolutionStatus.DualInfeasible)
+    for kt, rt in zip(k[:3], r[:3]):
+        torch.testing.assert_close(kt[same], rt[same], atol=1e-3, rtol=0)
+    st = k[3].tolist()
+    assert st[1] == QPSolutionStatus.PrimalInfeasible and int(k[4][1]) == 0
+    assert torch.equal(k[0][1], args[12][1]) and float(k[5][1]) == float("inf")
+    assert st[3] == QPSolutionStatus.PrimalInfeasible and int(k[4][3]) > 0
+    assert st[4] == QPSolutionStatus.DualInfeasible
+    assert float((k[3] == QPSolutionStatus.Optimal).float().mean()) >= 0.95
+
+
+def test_problem_kernel_refuses_bad_inputs(dev):
+    """Wrong dtype, shape, device or contiguity, and vectors beyond one
+    block's shared memory, raise before any launch."""
+    prm = QPSolverParams(polish=False, backend="cuda")
+    args = _problem_inputs(7, 9, 6, seed=0, dev=dev, prm=prm)
+    admm_iterate_cuda.launches = 0
+    for i, bad in ((3, args[3].double()), (0, args[0][:, :, :-1]), (3, args[3].cpu()),
+                   (1, args[1].transpose(1, 2).contiguous().transpose(1, 2)),
+                   (9, args[9][:1])):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            admm_iterate_cuda(prm, *wrong)
+    with pytest.raises(ValueError):  # per-problem matrices to the shared kernel
+        admm_iterate_cuda_shared(prm, *args)
+    n = m = 3000  # 252 KB of vectors
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    big = [z(1, n, n), z(1, m, n), z(1, n, n), z(1, n), z(1, m), z(1, m), z(1, m), z(1, n),
+           z(1, m), z(1), z(1, m), z(1, m), z(1, n), z(1, m), z(1, m),
+           torch.zeros(1, dtype=torch.int32, device=dev)]
+    with pytest.raises(ValueError, match="cannot hold"):
+        admm_iterate_cuda(prm, *big)
+    assert admm_iterate_cuda.launches == 0
+
+
+def test_solver_per_problem_route_goes_through_kernel(dev):
+    """solve_qp_batch on backend="cuda" without factors (and with
+    per-problem factors) launches the per-problem kernel once and agrees
+    with backend="torch" on statuses; per_problem_kernel_args hands the
+    kernel what the solver does."""
+    qp = qp_from_numpy(problem_family(20, 15, 256, seed=9), device=dev, dtype=torch.float32)
+    prm_c = QPSolverParams(polish=False, backend="cuda", max_iter=1000)
+    prm_t = QPSolverParams(polish=False, backend="torch", max_iter=1000)
+    admm_iterate_cuda.launches = 0
+    sc = solve_qp_batch(qp, prm_c)
+    assert admm_iterate_cuda.launches == 1
+    st = solve_qp_batch(qp, prm_t)
+    assert float((sc.status == st.status).float().mean()) >= 0.99
+    f = qp_factorize(qp, prm_c)
+    sf = solve_qp_batch(qp, prm_c, None, f)
+    assert admm_iterate_cuda.launches == 2
+    assert torch.equal(sf.status, sc.status) and torch.equal(sf.iters, sc.iters)
+    k = admm_iterate_cuda(prm_c, *per_problem_kernel_args(qp, f, None, prm_c))
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], sc.status) and torch.equal(k[4], sc.iters)
+    torch.testing.assert_close(f.sx * k[0], sc.primal, rtol=0, atol=0)

@@ -5,6 +5,8 @@ The double-integrator tracking problem of tests/test_mpc.py and bench.py is
 built in both packages; states and noise come from numpy with a seed.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,13 +24,18 @@ from smooth_feedback_tpu.ocp.collocation import Mesh as JMesh
 from smooth_feedback_tpu.qp import QPSolverParams as JQPSolverParams
 from smooth_feedback_tpu_torch.controllers import MPCParams, make_mpc_step
 from smooth_feedback_tpu_torch.controllers.mpc import _build_condensation
-from smooth_feedback_tpu_torch.convert import qp_from_numpy, solution_from_numpy, weights_from_numpy
+from smooth_feedback_tpu_torch import convert
 from smooth_feedback_tpu_torch.groups import Rn
 from smooth_feedback_tpu_torch.ocp import OCP, variable_layout
 from smooth_feedback_tpu_torch.ocp.collocation import Mesh
 from smooth_feedback_tpu_torch.qp import QPSolutionStatus, QPSolverParams
 
 torch.set_num_threads(1)
+
+# the port's entry points default to the card; these tests run on the CPU
+qp_from_numpy = functools.partial(convert.qp_from_numpy, device="cpu")
+solution_from_numpy = functools.partial(convert.solution_from_numpy, device="cpu")
+weights_from_numpy = functools.partial(convert.weights_from_numpy, device="cpu")
 
 # bench.py's solver settings (bench.py:75-93)
 BENCH_QP = dict(scaling=True, polish=False, rho=2.0, rho_eq_scale=15.0,
@@ -191,7 +198,7 @@ def test_static_reference_f64():
             lambda t: torch.zeros(1, dtype=torch.float64),
             weights=weights_from_numpy(WEIGHTS),
             params=MPCParams(K=8, tf=5.0, qp=QPSolverParams(**qp)),
-            cr=lambda x, u: u, crl=[-0.5], cru=[0.5],
+            cr=lambda x, u: u, crl=[-0.5], cru=[0.5], device="cpu",
             reuse_factors=True, condense=True, static_reference=static,
         )
 
@@ -222,18 +229,28 @@ def test_static_reference_f64():
 
 
 def test_unported_paths_raise():
-    """Combinations this slice does not port raise NotImplementedError."""
+    """Combinations the port does not hold yet raise NotImplementedError
+    (time_varying, the sparse common-clock fleet step, per-member clocks on
+    the condensed path); condense without reuse_factors raises ValueError,
+    as in the JAX package."""
     qp = QPSolverParams(**BENCH_QP)
-    for kw in (dict(condense=False), dict(reuse_factors=False), dict(time_varying=True)):
-        args = dict(reuse_factors=True, condense=True)
-        args.update(kw)
-        with pytest.raises(NotImplementedError):
-            make_mpc_step(
-                Rn(2), Rn(1), lambda x, u: torch.stack([x[1], u[0]]),
-                lambda t: torch.zeros(2, dtype=torch.float64),
-                lambda t: torch.zeros(1, dtype=torch.float64),
-                weights=weights_from_numpy(WEIGHTS), params=MPCParams(K=8, qp=qp), **args,
-            )
+
+    def build(**kw):
+        return make_mpc_step(
+            Rn(2), Rn(1), lambda x, u: torch.stack([x[1], u[0]]),
+            lambda t: torch.zeros(2, dtype=torch.float64),
+            lambda t: torch.zeros(1, dtype=torch.float64),
+            weights=weights_from_numpy(WEIGHTS), params=MPCParams(K=8, qp=qp),
+            device="cpu", **kw,
+        )
+
+    with pytest.raises(NotImplementedError):
+        build(time_varying=True)
+    with pytest.raises(ValueError, match="reuse_factors"):
+        build(condense=True)
+    sparse, ws0 = build(reuse_factors=True)
+    with pytest.raises(NotImplementedError):
+        sparse.fleet_shared_t(ws0, 0.0, torch.zeros(1, 2, dtype=torch.float64))
     t_step, ws0 = _torch_step(8, qp)
     with pytest.raises(NotImplementedError):
         t_step.fleet(ws0, 0.0, torch.zeros(1, 2, dtype=torch.float64))

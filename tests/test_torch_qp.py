@@ -6,6 +6,8 @@ side runs as the JAX tests run it here: float64 through ``backend="xla"``,
 and the Pallas kernel in interpret mode.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,16 +20,12 @@ from smooth_feedback_tpu.qp import qp_factorize as j_factorize
 from smooth_feedback_tpu.qp import solve_qp_batch as j_solve
 from smooth_feedback_tpu.qp import warmstart_like as j_warmstart_like
 from smooth_feedback_tpu.qp.pallas_kernel import admm_iterate_pallas_shared
-from smooth_feedback_tpu_torch.convert import (
-    factors_from_numpy,
-    qp_from_numpy,
-    solution_from_numpy,
-)
+from smooth_feedback_tpu_torch import convert
 from smooth_feedback_tpu_torch.qp import (
     QPSolutionStatus,
     QPSolverParams,
     admm_iterate_cuda_shared,
-    admm_iterate_shared_reference,
+    admm_iterate_reference,
     qp_factorize,
     shared_kernel_args,
     solve_qp,
@@ -36,6 +34,11 @@ from smooth_feedback_tpu_torch.qp import (
 )
 
 torch.set_num_threads(1)
+
+# the port's entry points default to the card; these tests run on the CPU
+qp_from_numpy = functools.partial(convert.qp_from_numpy, device="cpu")
+factors_from_numpy = functools.partial(convert.factors_from_numpy, device="cpu")
+solution_from_numpy = functools.partial(convert.solution_from_numpy, device="cpu")
 
 
 def _random_qp(rng, n, m):
@@ -225,7 +228,7 @@ def _kernel_inputs(family, rng, B=6):
 @pytest.mark.parametrize("family", ["random", "di_condensed"])
 @pytest.mark.parametrize("stop_check_iter,max_iter", [(1, 300), (10, 300), (10, 12)])
 def test_kernel_reference_matches_pallas(family, stop_check_iter, max_iter):
-    """admm_iterate_shared_reference (f32) against the Pallas kernel in
+    """admm_iterate_reference (f32) against the Pallas kernel in
     interpret mode: statuses and iterations equal; x, z, y within 1e-4 (f32
     with a different summation order).  The CUDA wrapper on CPU tensors gives
     the same result and launches nothing."""
@@ -236,7 +239,7 @@ def test_kernel_reference_matches_pallas(family, stop_check_iter, max_iter):
                           stop_check_iter=stop_check_iter, backend="cuda")
     jout = admm_iterate_pallas_shared(jprm, *(jnp.asarray(a) for a in args), interpret=True)
     targs = [torch.as_tensor(a) for a in args]
-    tout = admm_iterate_shared_reference(tprm, *targs)
+    tout = admm_iterate_reference(tprm, *targs)
     status = tout[3].numpy()
     np.testing.assert_array_equal(status, np.asarray(jout[3]))
     np.testing.assert_array_equal(tout[4].numpy(), np.asarray(jout[4]))
@@ -309,7 +312,7 @@ def test_shared_kernel_args_are_what_the_solver_hands_the_kernel():
     cold = solve_qp_batch(qps, prm, None, f)
     for ws in (None, cold):
         sol = solve_qp_batch(qps, prm, ws, f)
-        x, z, y, status, iters, pres, dres = admm_iterate_shared_reference(
+        x, z, y, status, iters, pres, dres = admm_iterate_reference(
             prm, *shared_kernel_args(qps, f, ws)
         )
         torch.testing.assert_close(sol.primal, f.sx * x, rtol=0, atol=0)
