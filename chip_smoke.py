@@ -18,9 +18,15 @@ Phases:
   2. build: compiles the CUDA sources with nvcc for sm_90a, one nvcc per
      source, in parallel;
   3. each kernel against its plain PyTorch version at its path's shapes: 20
-     fixed iterations, one cold and one warm-started solve, every point the
-     kernel calls Optimal re-checked in float64, both times; the per-problem
-     kernel also on a numpy family whose members fire every certificate;
+     fixed iterations (iterates and returned residuals), one cold and one
+     warm-started solve, every point the kernel calls Optimal re-checked in
+     float64, both times, each as the mean of back-to-back calls and as the
+     median of single launches (the shared
+     kernel's also at B = 1024 and, cold, with the members sorted by their
+     iteration counts); the layout each launch takes at its path's shape,
+     where the per-problem kernel must keep Minv and As resident in shared
+     memory; the per-problem kernel also on a numpy family whose members
+     fire every certificate;
   4. each path: closed-loop fleet steps with every launch count set to 0
      just before and read just after, step time, the Optimal share, and the
      first steps again on the plain path;
@@ -34,6 +40,7 @@ Any failed phase exits non-zero.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,9 +103,51 @@ def build_phase():
     _build.load()
     phase("build", f"built and loaded in {time.perf_counter() - t0:.3f} s "
                    f"(nvcc {_build.build_seconds:.3f} s)")
+    # ptxas's report, one line a kernel: its template arguments (admm_problem:
+    # 32-column tiles a warp covers, 0 streams; admm_shared: entries a lane,
+    # problems a warp), registers and spills
+    name = "?"
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            phase("build", line.strip())
+        found = re.search(r"\d(admm_[a-z]+_kernel)I((?:Li\d+E)+)", line)
+        if found:
+            name = found.group(1) + "<" + ", ".join(re.findall(r"Li(\d+)E", found.group(2))) + ">"
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            phase("build", f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+
+
+def layout_phase():
+    """The layout each launch takes at its path's shape, asked of the built
+    library and held against the Python mirrors; the per-problem kernel must
+    run resident at (163, 99)."""
+    import ctypes
+
+    from smooth_feedback_tpu_torch import _build
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+
+    lib = _build.load()
+    block = qp_params("cuda").kernel_block
+    for b in (B, 1024):
+        out = (ctypes.c_int * 4)()
+        require(lib.admm_shared_plan(b, 52, 52, block, out) == 0,
+                "admm_shared_plan refused the path's shape")
+        phase("layout", f"admm_shared at B={b}, n=m=52, kernel_block={block}: {out[0]} problems a "
+                        f"warp, {out[1]} problems and {out[2]} warps a block, {out[3]} bytes of "
+                        f"shared memory a block")
+        require(tuple(out) == ck.shared_plan(b, 52, 52, block),
+                "shared_plan does not mirror the library")
+    smem = ctypes.c_int(0)
+    resident = lib.admm_problem_route(163, 99, ck.PROBLEM_WARPS, ctypes.byref(smem))
+    route = "resident" if resident else "streaming"
+    phase("layout", f"admm_problem at n=163, m=99: {route} route, {ck.PROBLEM_WARPS} warps and "
+                    f"{smem.value} bytes of shared memory a block")
+    require((route, smem.value) == ck.problem_route(163, 99),
+            "problem_route does not mirror the library")
+    require(resident == 1, "the per-problem kernel does not keep Minv and As resident at (163, 99)")
+    streamed = lib.admm_problem_route(600, 600, ck.PROBLEM_WARPS, ctypes.byref(smem))
+    require(streamed == 0 and ck.problem_route(600, 600)[0] == "streaming",
+            "n = m = 600 is not streamed")
 
 
 def make_main_path(backend, dev):
@@ -138,6 +187,11 @@ def initial_states(dev):
 
 
 def time_ms(fn, reps):
+    """Mean device time of one call of ``fn`` in ms: one pair of events around
+    ``reps`` back-to-back calls (after a warm-up).  Every time in the kernels
+    line is taken this way.  Where the host needs longer to enqueue a call
+    than the card to run it, this reads the host's pace: see
+    :func:`time_single_ms`."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -147,6 +201,27 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_single_ms(fn, reps):
+    """Median device time of one call of ``fn`` in ms.  Each of ``reps``
+    calls (after a warm-up) sits between its own pair of events, behind a
+    spin kernel of about half a millisecond that keeps the card busy while
+    the host enqueues the call: the events then bracket the call's device
+    work alone, also when that is shorter than the host's own time to
+    launch it."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # cycles
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+        torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in pairs]))
 
 
 FIXED_ITERS = 20
@@ -162,6 +237,12 @@ FIXED_ITERS = 20
 # the f32 plain version is lies within it.
 ITER_TOL = 1e-4
 PRIMAL_TOL = 1e-4
+# The residuals a kernel returns (pres, dres of the last check) are f32
+# max-norms of differences of products larger than themselves (A x - z;
+# P x + q + A' y), so they carry those products' rounding: each may differ
+# from the plain version's by 1e-3 + 1e-2 of its size, plus twice the f32
+# plain version's own distance from its f64 run.
+RES_ATOL, RES_RTOL = 1e-3, 1e-2
 
 
 def f64(args):
@@ -266,6 +347,18 @@ def fixed_iteration_check(wrapper, args, qprm):
                     + f" (bound {ITER_TOL:g} x scale + 2 x floor)")
     require(ran, "with all tolerances 0 a member stopped before max_iter")
     require(ok, "fixed-iteration iterates differ beyond the bound")
+    # the last check's residuals as returned, at the member where they differ most
+    rows, res_ok = [], True
+    for name, kt, rt, dt in zip(("pres", "dres"), k[5:], r[5:], d[5:]):
+        diff = (kt - rt).abs()
+        i = int(diff.argmax())
+        floor = float((rt.double() - dt).abs().max())
+        rows.append(f"{name} {float(diff[i]):.3e} at member {i} (kernel {float(kt[i]):.6e}, plain "
+                    f"{float(rt[i]):.6e}; f32 plain - f64 {floor:.3e})")
+        res_ok = res_ok and bool((diff <= RES_ATOL + RES_RTOL * rt.abs() + 2 * floor).all())
+    phase("kernel", "the residuals of the last check, max |kernel - plain|: " + ", ".join(rows)
+                    + f" (bound {RES_ATOL:g} + {RES_RTOL:g} x size + 2 x floor)")
+    require(res_ok, "the returned residuals differ beyond the bound")
     return worst
 
 
@@ -368,9 +461,34 @@ def kernel_phase(step, dev):
             time_ms(lambda: admm_iterate_reference(qprm, *args), 5),
             *bound(args, k, qprm),
         )
+        single = time_single_ms(lambda: admm_iterate_cuda_shared(qprm, *args), 20)
         phase("kernel", f"shared {name}: kernel {rows[name][0]:.4f} ms, plain "
-                        f"{rows[name][1]:.4f} ms per solve at B={B}, n=m={n}; bound "
-                        f"{rows[name][2]:.4f} ms ({rows[name][3]})")
+                        f"{rows[name][1]:.4f} ms per solve at B={B}, n=m={n} (means of "
+                        f"back-to-back calls; median of single kernel launches {single:.4f} "
+                        f"ms); bound {rows[name][2]:.4f} ms ({rows[name][3]})")
+        # a small fleet (one problem a warp), the same members
+        small = tuple(a[:1024].contiguous() if a.dim() and a.shape[0] == B else a for a in args)
+        ks = admm_iterate_cuda_shared(qprm, *small)
+        require(all(torch.equal(a, b[:1024]) for a, b in zip(ks, k)),
+                f"shared {name}: a member's result depends on the batch around it")
+        ms = time_ms(lambda: admm_iterate_cuda_shared(qprm, *small), 20)
+        single = time_single_ms(lambda: admm_iterate_cuda_shared(qprm, *small), 20)
+        bs, by = bound(small, ks, qprm)
+        phase("kernel", f"shared {name} at B=1024: kernel {ms:.4f} ms back to back (no less "
+                        f"than the host takes to enqueue a call), {single:.4f} ms median of "
+                        f"single launches; bound {bs:.4f} ms ({by}), results equal the B={B} "
+                        f"launch's")
+        if name == "cold":
+            # what sorting stragglers could gain at best: the members in the
+            # order of the iteration counts this very solve gives them
+            perm = torch.argsort(k[4], stable=True)
+            srt = tuple(a[perm].contiguous() if a.dim() and a.shape[0] == B else a for a in args)
+            ks = admm_iterate_cuda_shared(qprm, *srt)
+            require(all(torch.equal(a, b[perm]) for a, b in zip(ks, k)),
+                    "shared cold: sorting the members changed a result")
+            ms = time_ms(lambda: admm_iterate_cuda_shared(qprm, *srt), 20)
+            phase("kernel", f"shared cold, members sorted by their iteration counts: kernel "
+                            f"{ms:.4f} ms (unsorted {rows[name][0]:.4f} ms)")
     return worst, rows["warm"]
 
 
@@ -487,9 +605,11 @@ def problem_kernel_phase(step, dev):
             time_ms(lambda: admm_iterate_reference(qprm, *args), 3),
             *bound(args, k, qprm),
         )
+        single = time_single_ms(lambda: admm_iterate_cuda(qprm, *args), 10)
         phase("kernel", f"per-problem {name}: kernel {rows[name][0]:.4f} ms, plain "
-                        f"{rows[name][1]:.4f} ms per solve at B={FLEET_B}, n={n}, m={m}; bound "
-                        f"{rows[name][2]:.4f} ms ({rows[name][3]})")
+                        f"{rows[name][1]:.4f} ms per solve at B={FLEET_B}, n={n}, m={m} (means "
+                        f"of back-to-back calls; median of single kernel launches {single:.4f} "
+                        f"ms); bound {rows[name][2]:.4f} ms ({rows[name][3]})")
 
     # every certificate branch on the card: +-inf rows, a primal- and a
     # dual-infeasible member, a member that starts PrimalInfeasible
@@ -678,6 +798,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
+    layout_phase()
     t0 = time.perf_counter()
     step, ws0 = make_main_path("cuda", dev)
     fleet, fws0 = make_fleet_path("cuda", dev)

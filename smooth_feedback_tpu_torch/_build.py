@@ -67,6 +67,11 @@ def _declare(lib):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 23 + [i, i, i, i] + [f] * 6 + [i, i, p]
         fn.restype = ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.admm_shared_plan.argtypes = [i, i, i, i, ip]
+    lib.admm_shared_plan.restype = ctypes.c_int
+    lib.admm_problem_route.argtypes = [i, i, i, ip]
+    lib.admm_problem_route.restype = ctypes.c_int
     return lib
 
 

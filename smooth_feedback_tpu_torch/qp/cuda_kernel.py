@@ -5,19 +5,22 @@ Two kernels, one per TPU kernel of ``smooth_feedback_tpu/qp/pallas_kernel.py``:
 - ``csrc/admm_shared.cu`` replaces ``_admm_kernel_shared`` (called through
   ``admm_iterate_pallas_shared``): every problem of the batch shares the
   scaled ``Minv``, ``As`` and ``Ps``; each has its own vectors and warm start.
-  On an H100 it is bound by latency and FMA issue rate, not by HBM: the three
-  shared matrices stay resident in shared memory for the whole solve and
-  every problem's vectors stay in registers.  One warp per problem, each
-  running its own loop and exiting on its own (a member's result does not
-  depend on the rest of its block, so this equals the TPU kernel's
-  block-lockstep semantics), many warps resident per SM to hide the latency
-  of the dependent product chain, fp32 FMAs, and an odd row stride so row and
-  column reads are free of bank conflicts.
+  On an H100 it is bound by the 128 bytes a clock that an SM's shared
+  memory delivers to the registers, not by HBM: the three shared matrices
+  stay resident in shared memory for the whole solve and every problem's
+  vectors stay in registers.  A warp advances a group of 2 problems in
+  lockstep (the TPU kernel's GEMM form, with per-member freeze masks), so
+  one matrix entry read from shared memory feeds a whole group's FMAs; fp32
+  FMAs, and an odd row stride so row and column reads are free of bank
+  conflicts.  :func:`shared_plan` mirrors how a launch lays a batch out.
 - ``csrc/admm_problem.cu`` replaces ``_admm_kernel`` (called through
   ``admm_iterate_pallas``): every problem carries its own ``Minv``, ``As``,
-  ``Ps``, ``rho``, ``sx``, ``sy`` and ``c``.  One thread block per problem;
-  the matrices do not fit a block's shared memory at the sizes it serves, so
-  they stream from device memory (bound by bytes; see the source's note).
+  ``Ps``, ``rho``, ``sx``, ``sy`` and ``c``.  Its bound is device memory
+  (each matrix read once).  One thread block per problem; where ``Minv``,
+  ``As`` and the vectors fit a block's shared memory (:func:`problem_route`)
+  the block copies them in once and iterates from there, at the rate shared
+  memory feeds its matrix-vector products, reading ``Ps`` from device memory
+  once per check; larger shapes stream the matrices on every iteration.
 
 :func:`admm_iterate_cuda_shared` and :func:`admm_iterate_cuda` launch their
 kernel on CUDA tensors and run :func:`admm_iterate_reference` on CPU tensors;
@@ -37,9 +40,11 @@ from .types import QPSolverParams
 # what one block may hold on an H100 (232,448 bytes of shared memory)
 SMEM_LIMIT = 232448
 MAX_DIM = 128  # shared kernel: entries per lane are instantiated up to 4 (K <= 4)
-MAX_BLOCK = 8  # shared kernel: warps per block (__launch_bounds__(256))
-PROBLEM_WARPS = 8  # per-problem kernel: warps per block, one block per problem
-PROBLEM_STATIC_SMEM = 4 * 10 * 8  # its block-reduction scratch
+MAX_BLOCK = 8  # shared kernel: problems per block (a group for each of its warps)
+MAX_WARPS = 8  # shared kernel: warps per block (__launch_bounds__(256))
+SMS = 132  # streaming multiprocessors of an H100, four warp schedulers each
+PROBLEM_WARPS = 16  # per-problem kernel: warps per block, one block per problem
+PROBLEM_STATIC_SMEM = 4 * 10 * 16  # its block-reduction scratch
 
 
 def admm_iterate_reference(
@@ -151,18 +156,61 @@ def admm_iterate_reference(
     return x, z, y, status, iters, pres, dres
 
 
-def smem_bytes(n: int, m: int, warps: int) -> int:
-    """Shared memory one block of the shared kernel needs (mirrors the C
-    function in csrc/admm_shared.cu)."""
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _block_group(block: int) -> int:
+    """Widest group a warp of the shared kernel advances together in a block
+    of ``block`` problems."""
+    return 2 if block >= 2 else 1
+
+
+def smem_bytes(n: int, m: int, block: int) -> int:
+    """Dynamic shared memory one block of the shared kernel needs for blocks
+    of ``block`` problems (mirrors the C function in csrc/admm_shared.cu):
+    three matrices at an odd row stride and 64 K floats of staging for each
+    problem of a block (whole groups)."""
     ld = n | 1
     K = (max(n, m) + 31) // 32
-    return 4 * (ld * (2 * n + m) + warps * 32 * K)
+    P = _block_group(block)
+    slots = -(-block // P) * P
+    return 4 * (_round4(ld * (2 * n + m)) + 64 * K * slots)
+
+
+def shared_plan(B: int, n: int, m: int, block: int):
+    """How the shared kernel lays out ``B`` problems in blocks of at most
+    ``block`` (mirrors ``plan`` in csrc/admm_shared.cu): ``(P, pb, warps,
+    smem)`` = problems a warp advances together, problems per block, warps
+    per block, dynamic shared memory in bytes.  Fleets too small to give
+    every warp scheduler a warp get one problem a warp, and those too small
+    to give every SM a block get smaller blocks."""
+    P = _block_group(block)
+    if P > 1 and -(-B // P) < 4 * SMS:
+        P = 1
+    pb = min(block, max(P, -(-B // SMS)))
+    warps = min(MAX_WARPS, -(-pb // P))
+    return P, pb, warps, smem_bytes(n, m, block)
+
+
+def problem_route(n: int, m: int):
+    """The route the per-problem kernel takes at ``(n, m)`` and the dynamic
+    shared memory one block needs (mirrors ``plan`` in
+    csrc/admm_problem.cu): ``("resident", bytes)`` when ``Minv``, ``As`` and
+    the vectors fit one block, else ``("streaming", bytes)`` with the vectors
+    alone.  The vectors are 10 of length n and 15 of length m, on the
+    resident route also one n-vector of partial sums per warp."""
+    vectors = 10 * _round4(n) + 15 * _round4(m)
+    partial = PROBLEM_WARPS * _round4(n)
+    if 4 * (m * n + n * n + 16 + vectors + partial) + PROBLEM_STATIC_SMEM <= SMEM_LIMIT:
+        return "resident", 4 * (_round4(m * n + 3) + _round4(n * n + 3) + vectors + partial)
+    return "streaming", 4 * vectors
 
 
 def problem_smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory one block of the per-problem kernel needs
-    (mirrors the C function in csrc/admm_problem.cu)."""
-    return 4 * (8 * n + 13 * m)
+    """Dynamic shared memory one block of the per-problem kernel needs on
+    the route :func:`problem_route` gives ``(n, m)``."""
+    return problem_route(n, m)[1]
 
 
 def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0,
@@ -198,7 +246,7 @@ def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u
         raise ValueError("stop_check_iter must be >= 1")
     if per_problem:
         need = problem_smem_bytes(n, m) + PROBLEM_STATIC_SMEM
-        if need > SMEM_LIMIT:
+        if need > SMEM_LIMIT:  # the streaming route's vectors alone
             raise ValueError(
                 f"the per-problem kernel cannot hold n={n}, m={m}: its vectors need "
                 f"{need} <= {SMEM_LIMIT} bytes of shared memory"

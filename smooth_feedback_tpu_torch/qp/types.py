@@ -65,8 +65,10 @@ class QPSolverParams:
                   float32): the shared-matrix kernel against shared factors,
                   the per-problem kernel otherwise.  On CPU tensors their
                   wrappers run the kernels' plain version.
-    ``kernel_block``: problems per thread block of the shared-matrix kernel
-    (one warp each); the per-problem kernel runs one problem per block.
+    ``kernel_block``: problems per thread block of the shared-matrix kernel,
+    1 to 8 (a block's warps each advance a group of 2 of them together;
+    the launch takes smaller blocks for a fleet too small to give every SM
+    one); the per-problem kernel runs one problem per block.
     """
 
     alpha: float = 1.6

@@ -23,6 +23,7 @@ from smooth_feedback_tpu_torch.qp import (
     qp_factorize,
     solve_qp_batch,
 )
+from smooth_feedback_tpu_torch.qp.cuda_kernel import problem_route, shared_plan
 
 torch.set_num_threads(1)
 
@@ -145,7 +146,7 @@ def test_kernel_statuses_match_plain_version(dev, n, m, block, stop_check_iter):
 
 
 def test_kernel_refuses_what_it_cannot_hold(dev):
-    """Shapes beyond one block's shared memory, blocks beyond 8 warps and
+    """Shapes beyond one block's shared memory, blocks beyond 8 problems and
     tensors on different devices raise before any launch."""
     args = _inputs(7, 9, 4, seed=0, dev=dev)
     prm = QPSolverParams(polish=False, backend="cuda")
@@ -164,6 +165,58 @@ def test_kernel_refuses_what_it_cannot_hold(dev):
     with pytest.raises(ValueError, match="cannot hold"):
         admm_iterate_cuda_shared(prm, *big)
     assert admm_iterate_cuda_shared.launches == 0
+
+
+# pres and dres, the last check's unscaled residuals as the kernels return
+# them, against the plain version's: each is an f32 max-norm of a difference
+# of products (A x - z; P x + q + A' y) whose terms are larger than it, so it
+# carries their rounding and not its own.  Untouched members hold inf in both.
+RES_ATOL, RES_RTOL = 1e-3, 1e-2
+
+
+@pytest.mark.parametrize("n,m,block", SHAPES)
+def test_kernel_groups_freeze_members_and_mask_a_ragged_tail(dev, n, m, block):
+    """A fleet large enough for the widest group a block of ``block``
+    problems allows (2 problems a warp), with B
+    not a multiple of the group and two members of one group starting
+    stopped: with stopping disabled the iterates match the plain version
+    within 1e-3 after 40 iterations (the bound of the test above) and the
+    returned residuals within RES_ATOL + RES_RTOL of their size, the
+    stopped members come back untouched and the last, partial group is
+    right; with stopping on, statuses agree for all but 0.1% of members."""
+    B = 4099
+    P = shared_plan(B, n, m, block)[0]
+    assert P == min(block, 2)
+    args = _inputs(n, m, B, seed=n + m, dev=dev)
+    stopped = [20, 21]  # one group
+    for s in stopped:
+        args[15][s] = int(QPSolutionStatus.DualInfeasible)
+        args[12][s] = 3.0
+    kw = dict(polish=False, rho=2.0, rho_eq_scale=15.0, stop_check_iter=10, backend="cuda",
+              kernel_block=block)
+    prm = QPSolverParams(max_iter=40, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                         eps_dual_inf=0.0, **kw)
+    k = admm_iterate_cuda_shared(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], r[3]) and torch.equal(k[4], r[4])
+    assert int((k[3] == QPSolutionStatus.MaxIterations).sum()) == B - 3
+    for kt, rt in zip(k[:3], r[:3]):
+        torch.testing.assert_close(kt, rt, atol=1e-3, rtol=1e-3)
+    for kt, rt in zip(k[5:], r[5:]):
+        torch.testing.assert_close(kt, rt, atol=RES_ATOL, rtol=RES_RTOL)
+    for s in stopped + [1]:
+        assert int(k[4][s]) == 0 and float(k[5][s]) == float("inf")
+        for out, start in zip(k[:3], args[12:15]):
+            assert torch.equal(out[s], start[s])
+    prm = QPSolverParams(max_iter=1500, **kw)
+    k = admm_iterate_cuda_shared(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    torch.cuda.synchronize()
+    assert float((k[3] == r[3]).float().mean()) >= 0.999
+    assert int(k[3][B - 1]) == int(r[3][B - 1])
+    ki, ri = float(k[4].float().mean()), float(r[4].float().mean())
+    assert abs(ki - ri) <= 0.02 * ri
 
 
 def test_solver_cuda_backend_goes_through_kernel(dev):
@@ -207,7 +260,9 @@ PROBLEM_SHAPES = [
     (7, 9, 500),  # fewer rows and columns than a warp
     (64, 64, 256),
     (163, 99, 256),  # the per-member-clock vehicle fleet's QP
-    (600, 600, 8),  # vectors beyond 48 KB of shared memory
+    (600, 600, 8),  # streamed from device memory; vectors beyond 48 KB of shared memory
+    (218, 20, 16),  # the largest n at m = 20 that stays resident in shared memory
+    (219, 20, 16),  # one more column: streamed
 ]
 
 
@@ -215,7 +270,10 @@ PROBLEM_SHAPES = [
 def test_problem_kernel_iterates_match_plain_version(dev, n, m, B):
     """With stopping disabled (all tolerances 0) both run exactly 20
     iterations, so the iterates compare directly: within 1e-3 (f32 with
-    another summation order and FMA contraction)."""
+    another summation order and FMA contraction), and so do the residuals
+    of the last check (within RES_ATOL + RES_RTOL of their size).  The
+    shapes lie on both sides of the residency limit."""
+    assert problem_route(n, m)[0] == ("resident" if n <= 218 else "streaming")
     prm = QPSolverParams(polish=False, max_iter=20, stop_check_iter=10, eps_abs=0.0,
                          eps_rel=0.0, eps_primal_inf=0.0, eps_dual_inf=0.0, backend="cuda")
     args = _problem_inputs(n, m, B, seed=n + m, dev=dev, prm=prm)
@@ -230,6 +288,8 @@ def test_problem_kernel_iterates_match_plain_version(dev, n, m, B):
     assert bool((k[3][run] == QPSolutionStatus.MaxIterations).all())
     for kt, rt in zip(k[:3], r[:3]):
         torch.testing.assert_close(kt[run], rt[run], atol=1e-3, rtol=1e-3)
+    for kt, rt in zip(k[5:], r[5:]):
+        torch.testing.assert_close(kt, rt, atol=RES_ATOL, rtol=RES_RTOL)
 
 
 @pytest.mark.parametrize("n,m,B", PROBLEM_SHAPES[:3])

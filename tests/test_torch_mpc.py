@@ -76,23 +76,24 @@ def test_transcription_and_condensation_f64():
     j_step, _ = _jax_step(12, JQPSolverParams(**qp_prm))
     t_step, _ = _torch_step(12, QPSolverParams(**qp_prm))
     rng = np.random.default_rng(5)
+    # one JAX compile for both transcriptions
+    j_both = jax.jit(lambda t, x: (j_step.transcribe(t, x), j_step.transcribe_vectors(t, x)))
     for t in (0.0, 0.8):
         x = 0.7 * rng.standard_normal(2)
-        jqp = jax.jit(j_step.transcribe)(t, jnp.asarray(x))
+        jqp, jv = j_both(t, jnp.asarray(x))
         tqp = t_step.transcribe(t, torch.as_tensor(x))
         for name in ("P", "q", "A", "l", "u"):
             np.testing.assert_allclose(
                 getattr(tqp, name).numpy(), np.asarray(getattr(jqp, name)),
                 atol=1e-12, rtol=0, err_msg=name,
             )
-        jv = jax.jit(j_step.transcribe_vectors)(t, jnp.asarray(x))
         tv = t_step.transcribe_vectors(t, torch.as_tensor(x))
         for a, b in zip(tv, jv):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-12, rtol=0)
 
     # condensation of the template transcribed at x = xdes(0)
     xd0 = np.array([0.0, -0.15])
-    jqp0 = jax.jit(j_step.transcribe)(0.0, jnp.asarray(xd0))
+    jqp0, _ = j_both(0.0, jnp.asarray(xd0))
     jlay = j_variable_layout(
         JOCP(X=JRn(2), U=JRn(1), theta=None, f=None, g=None, cr=None,
              crl=jnp.zeros(1), cru=jnp.zeros(1), ce=None, cel=jnp.zeros(2), ceu=jnp.zeros(2)),
@@ -135,7 +136,7 @@ def _closed_loop(j_fleet, t_fleet, jws0, tws0, xs0, steps, on_step):
 
 def test_fleet_closed_loop_f64():
     """The slice end to end in f64: bench.py's QP settings at K=8, B=16, a
-    20-step closed loop; the port on "torch" against JAX on "xla".  Statuses
+    10-step closed loop (cold start, then nine warm-started steps); the port on "torch" against JAX on "xla".  Statuses
     and iterations equal at every step; u within 1e-8 (f64, summation order
     only)."""
     j_step, jws0 = _jax_step(8, JQPSolverParams(**BENCH_QP))
@@ -151,7 +152,7 @@ def test_fleet_closed_loop_f64():
                                    np.asarray(jr.warmstart.objective), atol=1e-8, rtol=0)
 
     _closed_loop(jax.jit(j_step.fleet_shared_t), t_step.fleet_shared_t,
-                 jws0, tws0, xs0, 20, check)
+                 jws0, tws0, xs0, 10, check)
 
     # the single-controller step is the fleet step at B = 1
     x = torch.tensor([0.3, -0.2], dtype=torch.float64)
@@ -164,8 +165,9 @@ def test_fleet_closed_loop_f64():
 def test_fleet_closed_loop_f32_kernel_backend():
     """The slice in f32: JAX on "pallas" (interpret mode) against the port on
     "cuda", whose wrapper runs the kernel's plain version on CPU tensors.
-    Statuses equal at every step; u within 1e-4 (f32 with another summation
-    order, and the JAX side transcribes in f64 before casting)."""
+    Statuses equal at every step of a 10-step closed loop; u within 1e-4 (f32
+    with another summation order, and the JAX side transcribes in f64 before
+    casting)."""
     jq = JQPSolverParams(**BENCH_QP, backend="pallas")
     tq = QPSolverParams(**BENCH_QP, backend="cuda")
     j_step, jws0 = _jax_step(8, jq, dtype=jnp.float32, return_trajectories=False)
@@ -179,7 +181,7 @@ def test_fleet_closed_loop_f32_kernel_backend():
         n_opt.append(int((tr.status == QPSolutionStatus.Optimal).sum()))
 
     _closed_loop(jax.jit(j_step.fleet_shared_t), t_step.fleet_shared_t,
-                 jws0, tws0, xs0, 20, check)
+                 jws0, tws0, xs0, 10, check)
     assert sum(n_opt) > 0
 
 

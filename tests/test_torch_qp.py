@@ -166,9 +166,11 @@ def test_solve_qp_single_and_unported_options():
 # ------------------------------------------------------- kernel module, f32
 
 
+@functools.lru_cache(maxsize=None)
 def _di_condensed_template():
     """The condensed double-integrator tracking QP at K=8 (n = m = 8):
-    ``(Pc, Ac)`` from the JAX package's one-time condensation."""
+    ``(Pc, Ac)`` from the JAX package's one-time condensation (built once
+    for all the cases that use it)."""
     from smooth_feedback_tpu.controllers import MPCParams, MPCWeights, make_mpc_step
     from smooth_feedback_tpu.controllers.mpc import _build_condensation
     from smooth_feedback_tpu.groups import Rn
@@ -280,6 +282,39 @@ def test_kernel_wrapper_rejects_bad_inputs():
     ]
     with pytest.raises(ValueError, match="cannot hold"):
         admm_iterate_cuda_shared(prm, *big, torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize(
+    "B,n,m,block,plan",
+    [
+        (8192, 52, 52, 8, (2, 8, 4)),  # the condensed path: two problems a warp
+        (1024, 52, 52, 8, (1, 8, 8)),  # too few problems for that: one a warp
+        (600, 52, 52, 8, (1, 5, 5)),  # ... and a block on every SM before larger blocks
+        (8192, 52, 52, 1, (1, 1, 1)),
+        (8192, 128, 100, 4, (2, 4, 2)),  # four entries a lane
+        (100, 7, 9, 8, (1, 1, 1)),
+    ],
+)
+def test_shared_kernel_layout(B, n, m, block, plan):
+    """The launch layout's Python mirror: problems a warp, problems and warps
+    a block at the shapes the tests and the condensed path use, within one
+    block's shared memory."""
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import SMEM_LIMIT, shared_plan, smem_bytes
+
+    P, pb, warps, smem = shared_plan(B, n, m, block)
+    assert (P, pb, warps) == plan
+    assert smem == smem_bytes(n, m, block) <= SMEM_LIMIT
+    assert warps * P <= max(pb, P) + P - 1 and smem >= 4 * ((n | 1) * (2 * n + m) + 64 * warps * P)
+
+
+def test_shared_kernel_refuses_blocks_out_of_range():
+    """kernel_block outside 1..8 raises before anything runs."""
+    args = [torch.as_tensor(a) for a in _kernel_inputs("random", np.random.default_rng(3))]
+    admm_iterate_cuda_shared.launches = 0
+    for block in (0, 9):
+        with pytest.raises(ValueError, match="kernel_block"):
+            admm_iterate_cuda_shared(QPSolverParams(polish=False, kernel_block=block), *args)
+    assert admm_iterate_cuda_shared.launches == 0
 
 
 def test_sort_stragglers_is_exact():

@@ -130,6 +130,31 @@ def test_per_problem_kernel_args_are_what_the_solver_hands_the_kernel():
         per_problem_kernel_args(type(qp)(*(a[:1] for a in qp)), shared)
 
 
+@pytest.mark.parametrize(
+    "n,m,route",
+    [
+        (163, 99, "resident"),  # the per-member-clock vehicle fleet's QP
+        (64, 64, "resident"),
+        (218, 20, "resident"),  # the largest n at m = 20 that fits
+        (219, 20, "streaming"),
+        (600, 600, "streaming"),
+    ],
+)
+def test_problem_route(n, m, route):
+    """The per-problem kernel's route by size alone: Minv, As and the
+    vectors resident when they fit one block's shared memory, the vectors
+    alone otherwise."""
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import (
+        PROBLEM_STATIC_SMEM, SMEM_LIMIT, problem_route, problem_smem_bytes,
+    )
+
+    got, smem = problem_route(n, m)
+    assert got == route
+    assert smem == problem_smem_bytes(n, m) and smem + PROBLEM_STATIC_SMEM <= SMEM_LIMIT
+    vectors = 4 * (10 * n + 15 * m)
+    assert smem >= vectors + (4 * (n * n + m * n) if route == "resident" else 0)
+
+
 def test_problem_wrapper_rejects_bad_inputs():
     """The per-problem wrapper checks dtype, shape and what one block's
     shared memory holds before it runs anything."""
