@@ -61,6 +61,15 @@ FLEET_STEPS = 50
 FLEET_PLAIN_STEPS = 3
 TWIST = (0.5, 0.0, 0.3)
 
+# the SE(2) x R^3 vehicle MPC + ASIF fleet (benchmarks/asif_bench.py:39-123)
+ASIF_B = 256  # the bench's default fleet
+ASIF_MPC_K = 30
+ASIF_DT = 0.025
+ASIF_WARM = 40
+ASIF_STEPS = 40
+ASIF_PLAIN_STEPS = 5
+ASIF_T = 2.5
+
 KERNELS = {
     "admm_shared": ("smooth_feedback_tpu_torch/csrc/admm_shared.cu",
                     "smooth_feedback_tpu/qp/pallas_kernel.py:234"),
@@ -317,7 +326,7 @@ def residual_slack(qps, args, out, prm):
     return float(ratio.max()) if bool(opt.any()) else 0.0
 
 
-def fixed_iteration_check(wrapper, args, qprm):
+def fixed_iteration_check(wrapper, args, qprm, start="cold inputs"):
     """All tolerances 0: no member can stop, so kernel and plain version run
     exactly FIXED_ITERS iterations and their iterates compare directly, each
     vector within ITER_TOL of its own scale plus twice the f32 plain
@@ -342,7 +351,7 @@ def fixed_iteration_check(wrapper, args, qprm):
         rows.append(f"{name} {err:.3e} (f32 plain - f64 {floor:.3e}, scale {scale:.3e})")
         worst = max(worst, err)
         ok = ok and err <= ITER_TOL * scale + 2 * floor
-    phase("kernel", f"fixed {FIXED_ITERS} iterations, all tolerances 0, cold inputs: every "
+    phase("kernel", f"fixed {FIXED_ITERS} iterations, all tolerances 0, {start}: every "
                     f"member ran them in both: {ran}; max |kernel - plain| " + ", ".join(rows)
                     + f" (bound {ITER_TOL:g} x scale + 2 x floor)")
     require(ran, "with all tolerances 0 a member stopped before max_iter")
@@ -792,6 +801,352 @@ def reference_phase(dev, kept):
     return worst
 
 
+def vehicle_asif_path(mpc_backend, dev):
+    """benchmarks/asif_bench.py:39-123 in torch: the SE(2) x R^3 vehicle's
+    condensed MPC on one clock and the ASIF filter, float32 on ``dev``.
+    Returns ``(X, f, h, mpc_step, mpc_ws, asif_step, asif_ws)``."""
+    from smooth_feedback_tpu_torch.controllers import (
+        ASIFilterParams, MPCParams, MPCWeights, make_asif_step, make_mpc_step,
+    )
+    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
+
+    kw = dict(dtype=torch.float32, device=dev)
+    X, U = Bundle(SE2, Rn(3)), Rn(2)
+    vdes = torch.tensor([1.0, 0.0, 0.4], **kw)
+    base = torch.tensor([2.5, 0.0, 0.0, 1.0], **kw)
+    mpc, mws = make_mpc_step(
+        X, U, vehicle_asif_f, lambda t: torch.cat([SE2.rplus(base, t * vdes), vdes]),
+        lambda t: torch.zeros(2, **kw), dxdes=lambda t: torch.cat([vdes, torch.zeros(3, **kw)]),
+        weights=MPCWeights(Q=torch.eye(6, **kw), Qtf=0.1 * torch.eye(6, **kw), R=torch.eye(2, **kw)),
+        params=MPCParams(K=ASIF_MPC_K, tf=5.0, return_trajectories=False,
+                         qp=asif_mpc_params(mpc_backend)),
+        cr=lambda x, u: u, crl=[-0.5, -0.5], cru=[0.5, 0.5],
+        reuse_factors=True, condense=True, static_reference=True, **kw,
+    )
+    fl = asif_filter(dev)
+    asif, aws = make_asif_step(
+        X, U, vehicle_asif_f, fl["h"], fl["bu"],
+        params=ASIFilterParams(T=ASIF_T, asif=asif_to_qp_params(), qp=asif_qp_params("torch", True)),
+        W_u=fl["W_u"], ulim=fl["ulim"], **kw,
+    )
+    return X, vehicle_asif_f, fl["h"], mpc, mws, asif, aws
+
+
+def vehicle_asif_f(x, u):
+    """The bench's vehicle: SE(2) pose with body velocity x[4:7], damped."""
+    return torch.stack(
+        [x[4], x[5], x[6], -0.2 * x[4] + u[0], torch.zeros_like(x[4]), -0.4 * x[6] + u[1]]
+    )
+
+
+def asif_filter(dev):
+    """The bench's barrier (clearance of the obstacle at (0, -2.3)), backup
+    law, input weights and input bounds, float32 on ``dev``."""
+    from smooth_feedback_tpu_torch.utils import ManifoldBounds
+
+    kw = dict(dtype=torch.float32, device=dev)
+    obstacle = torch.tensor([0.0, -2.3], **kw)
+    return dict(
+        h=lambda t, x: torch.linalg.vector_norm(x[:2] - obstacle)[None] - 0.7,
+        bu=lambda t, x: torch.stack([0.2 * x[4], torch.full_like(x[4], -0.5)]),
+        W_u=torch.tensor([20.0, 1.0], **kw),
+        ulim=ManifoldBounds(A=torch.eye(2, **kw), c=torch.zeros(2, **kw),
+                            l=torch.tensor([-0.2, -0.5], **kw), u=torch.tensor([0.5, 0.5], **kw)),
+    )
+
+
+def asif_to_qp_params():
+    """The bench's barrier rows: K = 50 constraint times over T = 2.5."""
+    from smooth_feedback_tpu_torch.controllers import ASIFtoQPParams
+
+    return ASIFtoQPParams(K=50, dt=0.05, alpha=2.0, relax_cost=1000.0)
+
+
+def asif_mpc_params(backend):
+    """The bench's MPC solver settings (asif_bench.py:74-77) on a port backend."""
+    from smooth_feedback_tpu_torch.qp import QPSolverParams
+
+    return QPSolverParams(polish=False, max_iter=200, stop_check_iter=10, backend=backend)
+
+
+def asif_qp_params(backend, adaptive):
+    """The bench's ASIF solver settings (asif_bench.py:112-115): the lane
+    backend there, whose semantics the torch loop has."""
+    from smooth_feedback_tpu_torch.qp import QPSolverParams
+
+    return QPSolverParams(polish=False, max_iter=250, stop_check_iter=10, rho=0.02,
+                          adaptive_rho=adaptive, backend=backend)
+
+
+def asif_initial(X, dev):
+    """X.rplus(identity, 0.2 N(0, I6)) for ASIF_B vehicles, seed 0."""
+    from torch.func import vmap
+
+    dx = torch.as_tensor(0.2 * np.random.default_rng(SEED).standard_normal((ASIF_B, 6)),
+                         dtype=torch.float32, device=dev)
+    return vmap(lambda d: X.rplus(X.identity(dtype=torch.float32, device=dev), d))(dx)
+
+
+def batch_ws(ws, B_):
+    return type(ws)(*(a.expand((B_,) + a.shape).contiguous() for a in ws))
+
+
+def vehicle_asif_phase(parts, dev):
+    """ASIF_WARM + ASIF_STEPS closed-loop steps of the bench's fleet: the MPC
+    through the shared-matrix kernel, the ASIF on the torch loop with
+    adaptive rho, the plant.  The barrier must stay positive at every
+    post-step state; the kernel must launch once a step.  Returns the launch
+    counts, the first ASIF_PLAIN_STEPS steps' inputs and results, and the
+    state and carries after the run."""
+    from torch.func import vmap
+
+    X, f, h, mpc, mws0, asif, aws0 = parts
+    xs = asif_initial(X, dev)
+    mws, aws = batch_ws(mws0, ASIF_B), batch_ws(aws0, ASIF_B)
+    steps = ASIF_WARM + ASIF_STEPS
+    kept, step_s, m_st, a_st, a_it, hmins = [], [], [], [], [], []
+    reset_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = ASIF_DT * i
+        m = mpc.fleet_shared_t(mws, t, xs)
+        a = asif.fleet(aws, xs, m.u)
+        if i < ASIF_PLAIN_STEPS:
+            kept.append((t, xs, mws, aws, m, a))
+        xs = vmap(lambda x, u: X.rplus(x, ASIF_DT * f(x, u)))(xs, a.u)
+        hmin = vmap(lambda x: h(t, x)[0])(xs).min()
+        mws, aws = m.warmstart, a.warmstart
+        torch.cuda.synchronize()
+        if i >= ASIF_WARM:
+            step_s.append(time.perf_counter() - t0)
+        m_st.append(m.status)
+        a_st.append(a.status)
+        a_it.append(a.warmstart.iters)
+        hmins.append(hmin)
+    counts = read_counts()
+    m_opt = float((torch.stack(m_st) == 0).float().mean())
+    a_opt = float((torch.stack(a_st) == 0).float().mean())
+    h_min = float(torch.stack(hmins).min())
+    med = float(np.median(step_s))
+    phase("vehicle-asif", f"{steps} steps ({ASIF_WARM} warm-up, {ASIF_STEPS} timed) x B={ASIF_B}: "
+                          f"MPC Optimal {m_opt * 100:.3f}%, ASIF Optimal {a_opt * 100:.3f}% (mean "
+                          f"ASIF iters {float(torch.stack(a_it).float().mean()):.3f}), launches "
+                          f"{counts}, min barrier {h_min:.6f}, median timed step {med * 1e3:.3f} ms "
+                          f"(min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}), "
+                          f"{ASIF_B / med:.1f} MPC+ASIF steps/s")
+    require(h_min > 0.0, f"safety: min barrier {h_min} <= 0")
+    require(counts["admm_shared"] == steps,
+            f"shared kernel launched {counts['admm_shared']} times in {steps} steps")
+    require(bool(torch.isfinite(xs).all()), "non-finite vehicle state")
+    return counts, kept, (ASIF_DT * steps, xs, mws, aws)
+
+
+def vehicle_asif_split(parts, carry, dev):
+    """A synchronised split of one step at the carried state, five times
+    over: MPC, ASIF transcription, ASIF solve, plant; medians."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp_fleet
+    from smooth_feedback_tpu_torch.qp import solve_qp_batch
+
+    from smooth_feedback_tpu_torch.groups import Rn
+
+    X, f, h, mpc, _, asif, _ = parts
+    t, xs, mws, aws = carry
+    fl = asif_filter(dev)
+    stages = {
+        "MPC": lambda _: mpc.fleet_shared_t(mws, t, xs),
+        "ASIF transcription": lambda m: (m, asif_to_qp_fleet(
+            X, Rn(2), asif_to_qp_params(), ASIF_T, xs, m.u, fl["W_u"], fl["ulim"], f, h, fl["bu"])),
+        "ASIF solve": lambda mq: solve_qp_batch(mq[1], asif_qp_params("torch", True), aws),
+        "plant": lambda sol: vmap(lambda x, u: X.rplus(x, ASIF_DT * f(x, u)))(xs, sol.primal[:, :2]),
+    }
+    times = {name: [] for name in list(stages) + ["whole step"]}
+    for _ in range(5):
+        out = None
+        for name, fn in stages.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(out)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = mpc.fleet_shared_t(mws, t, xs)
+        a = asif.fleet(aws, xs, m.u)
+        vmap(lambda x, u: X.rplus(x, ASIF_DT * f(x, u)))(xs, a.u)
+        torch.cuda.synchronize()
+        times["whole step"].append((time.perf_counter() - t0) * 1e3)
+    med = {name: float(np.median(v)) for name, v in times.items()}
+    phase("vehicle-asif", "one step, synchronised split (medians of 5): " + ", ".join(
+        f"{name} {v:.3f} ms" for name, v in med.items()))
+    return med
+
+
+# The vehicle MPC's u against the plain path: PR 1's bound (the kernel and
+# the plain loop run the same f32 iterations in another summation order).
+# The filtered u: the ASIF QP of a member differs between the two runs only
+# through its input u_des (the MPC u), and its solution is the W_u-weighted
+# projection of u_des onto the safe inputs, so |du| <= sqrt(20 / 1) |du_des|
+# between exact solutions; a solve that stops at the same check adds the
+# same f32 rounding as the MPC's.  So, where the ASIF iteration counts agree:
+# |du_asif| <= PRIMAL_TOL + 5 max |du_mpc|.
+ASIF_U_GAIN = 5.0
+
+
+def vehicle_asif_plain_phase(dev, kept):
+    """The first steps again with the MPC on the plain loop, each from the
+    kernel path's state and carries for that step."""
+    _, _, _, mpc_p, _, asif, _ = vehicle_asif_path("torch", dev)
+    worst_m, worst_a, agree_m, agree_a = 0.0, 0.0, 1.0, 1.0
+    for t, xs, mws, aws, mk, ak in kept:
+        mp = mpc_p.fleet_shared_t(mws, t, xs)
+        ap = asif.fleet(aws, xs, mp.u)
+        same_m = (mp.status == 0) & (mk.status == 0) & (mp.warmstart.iters == mk.warmstart.iters)
+        du_m = (mp.u - mk.u).abs().amax(dim=1)
+        dm = float(du_m[same_m].max()) if bool(same_m.any()) else float("inf")
+        same_a = (ap.status == ak.status) & (ap.warmstart.iters == ak.warmstart.iters)
+        da = float((ap.u - ak.u).abs().amax(dim=1)[same_a].max()) if bool(same_a.any()) else 0.0
+        require(da <= PRIMAL_TOL + ASIF_U_GAIN * float(du_m.max()),
+                f"filtered u differs from the plain path by {da:.3e} at t={t:.3f}")
+        worst_m, worst_a = max(worst_m, dm), max(worst_a, da)
+        agree_m = min(agree_m, float((mp.status == mk.status).float().mean()))
+        agree_a = min(agree_a, float(same_a.float().mean()))
+    phase("vehicle-asif-plain", f"MPC on the plain loop, first {len(kept)} steps on the kernel "
+                                f"path's states and carries: MPC status agreement >= "
+                                f"{agree_m * 100:.3f}%, max |du| equal-iters {worst_m:.3e} (bound "
+                                f"{PRIMAL_TOL:g}); ASIF statuses and iteration counts equal for >= "
+                                f"{agree_a * 100:.3f}%, max |du| there {worst_a:.3e} (bound "
+                                f"{PRIMAL_TOL:g} + {ASIF_U_GAIN:g} x max |du_mpc| of the step)")
+    require(agree_m >= 0.999, "plain and kernel vehicle MPC disagree on statuses")
+    require(worst_m <= PRIMAL_TOL, f"vehicle MPC u differs from the plain path by {worst_m:.3e}")
+    require(agree_a >= 0.99, f"ASIF statuses or counts agree for only {agree_a:.4f}")
+    return worst_m
+
+
+def vehicle_kernel_phase(parts, kept, dev):
+    """Both kernels at this path's shapes, against the plain version:
+    admm_shared on one step's condensed vehicle QPs (n = m = 64, B = 256),
+    admm_problem on one step's ASIF QPs (n = 3, m = 53, adaptive rho off),
+    each cold and warm.  Returns each kernel's worst error and warm row."""
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp_fleet
+    from smooth_feedback_tpu_torch.groups import Rn
+    from smooth_feedback_tpu_torch.qp import (
+        admm_iterate_cuda, admm_iterate_cuda_shared, admm_iterate_reference,
+        per_problem_kernel_args, shared_kernel_args, solve_qp_batch,
+    )
+
+    X, f, h, mpc, _, asif, _ = parts
+    t, xs, mws, aws, mk, ak = kept[-1]
+    f_ = mpc.factors
+    n, m = f_.Minv.shape[0], f_.As.shape[0]
+    require((n, m) == (64, 64), f"vehicle MPC QP is {n}x{m}, expected 64x64")
+    prm = asif_mpc_params("cuda")
+    qps = mpc.condensed_qp(t, xs)
+    cold = shared_kernel_args(qps, f_)
+    worst_s = fixed_iteration_check(admm_iterate_cuda_shared, cold, prm)
+    rows = {}
+    for name, args in (("cold", cold), ("warm", shared_kernel_args(qps, f_, mws))):
+        err, k = compare_with_plain(f"vehicle shared {name}", admm_iterate_cuda_shared, prm, args,
+                                    qps)
+        worst_s = max(worst_s, err)
+        rows[name] = (time_ms(lambda: admm_iterate_cuda_shared(prm, *args), 20),
+                      time_ms(lambda: admm_iterate_reference(prm, *args), 5), *bound(args, k, prm))
+        phase("kernel", f"vehicle shared {name}: kernel {rows[name][0]:.4f} ms, plain "
+                        f"{rows[name][1]:.4f} ms per solve at B={ASIF_B}, n=m={n} (means of "
+                        f"back-to-back calls); bound {rows[name][2]:.4f} ms ({rows[name][3]})")
+    shared_row = rows["warm"]
+
+    fl = asif_filter(dev)
+    aq = asif_to_qp_fleet(X, Rn(2), asif_to_qp_params(), ASIF_T, xs, mk.u, fl["W_u"], fl["ulim"],
+                          f, h, fl["bu"])
+    am, an = aq.A.shape[-2:]
+    require((an, am) == (3, 53), f"ASIF QP is n={an}, m={am}, expected n=3, m=53")
+    prm_k = asif_qp_params("cuda", False)
+    cold = per_problem_kernel_args(aq, None, None, prm_k)
+    # a member whose desired input is already safe has the cold start (0) as
+    # its exact solution and stops at the first check even with every
+    # tolerance 0: the fixed iterations start from a seeded random iterate
+    rng = np.random.default_rng(SEED)
+    noisy = list(cold)
+    for i in (12, 13, 14):  # x0, z0, y0
+        noisy[i] = torch.as_tensor(0.1 * rng.standard_normal(tuple(cold[i].shape)),
+                                   dtype=torch.float32, device=dev)
+    worst_p = fixed_iteration_check(admm_iterate_cuda, tuple(noisy), prm_k,
+                                    "a seeded random start (std 0.1)")
+    rows = {}
+    for name, args in (("cold", cold), ("warm", per_problem_kernel_args(aq, None, aws, prm_k))):
+        err, k = compare_with_plain(f"ASIF per-problem {name}", admm_iterate_cuda, prm_k, args, aq)
+        worst_p = max(worst_p, err)
+        rows[name] = (time_ms(lambda: admm_iterate_cuda(prm_k, *args), 20),
+                      time_ms(lambda: admm_iterate_reference(prm_k, *args), 5), *bound(args, k, prm_k))
+        phase("kernel", f"ASIF per-problem {name}: kernel {rows[name][0]:.4f} ms, plain "
+                        f"{rows[name][1]:.4f} ms per solve at B={ASIF_B}, n={an}, m={am} (means of "
+                        f"back-to-back calls); bound {rows[name][2]:.4f} ms ({rows[name][3]})")
+
+    # the ASIF solve on both routes, warm-started from the carry
+    for route, p in (("torch loop, adaptive rho", asif_qp_params("torch", True)),
+                     ("kernel, static rho", prm_k)):
+        ts, sol = [], None
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = solve_qp_batch(aq, p, aws)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        phase("kernel", f"ASIF solve ({route}): {float(np.median(ts)):.3f} ms (median of 5, "
+                        f"solve_qp_batch), mean iters {float(sol.iters.float().mean()):.3f}, "
+                        f"Optimal {float((sol.status == 0).float().mean()) * 100:.3f}%")
+    return worst_s, shared_row, worst_p, rows["warm"]
+
+
+def entry_points_phase(dev):
+    """The user entry points with default solver parameters (polish on): the
+    MPC class on the Quickstart vehicle (float64: polish by Cholesky) and
+    the ASIFilter on one vehicle of the bench's configuration (float32:
+    polish by LU), five calls each."""
+    from collections import Counter
+
+    from smooth_feedback_tpu_torch.controllers import MPC, ASIFilter, ASIFilterParams, MPCParams
+    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
+
+    ok = {0, 4}  # Optimal, MaxIterations
+    k64 = dict(dtype=torch.float64, device=dev)
+    twist = torch.tensor(TWIST, **k64)
+    f = lambda x, u: torch.stack([u[0], torch.zeros_like(u[0]), u[1]])
+    mpc = MPC(SE2, Rn(2), f, params=MPCParams(K=8, tf=3.0), **k64)
+    mpc.set_xdes(lambda t: SE2.exp(t * twist), dxdes=lambda t: twist)
+    mpc.set_udes(lambda t: torch.stack([twist[0], twist[2]]))
+    x = SE2.exp(torch.tensor([0.2, -0.1, 0.1], **k64))
+    stats, t0 = Counter(), time.perf_counter()
+    for i in range(5):
+        u, st = mpc(DT * i, x)
+        require(bool(torch.isfinite(u).all()) and int(st) in ok, f"MPC call {i}: {st!r}, u {u}")
+        stats[st.name] += 1
+        x = SE2.rplus(x, DT * f(x, u))
+    phase("entry-points", f"MPC class (Quickstart SE(2) vehicle, K=8, float64, default solver "
+                          f"parameters: polish on, backend torch): 5 calls in "
+                          f"{time.perf_counter() - t0:.3f} s, statuses {dict(stats)}, last u "
+                          f"{[round(float(v), 6) for v in u]}")
+
+    k32 = dict(dtype=torch.float32, device=dev)
+    X, fl = Bundle(SE2, Rn(3)), asif_filter(dev)
+    fil = ASIFilter(X, Rn(2), vehicle_asif_f, fl["h"], fl["bu"],
+                    params=ASIFilterParams(T=ASIF_T, asif=asif_to_qp_params()),
+                    W_u=fl["W_u"], ulim=fl["ulim"], **k32)
+    x = X.rplus(X.identity(**k32), torch.tensor([0.0, -0.3, -1.2, 0.5, 0.0, 0.0], **k32))
+    stats, t0 = Counter(), time.perf_counter()
+    for i in range(5):
+        u, st = fil(x, torch.tensor([0.3, 0.0], **k32))
+        require(bool(torch.isfinite(u).all()) and int(st) in ok, f"ASIFilter call {i}: {st!r}, u {u}")
+        stats[st.name] += 1
+        x = X.rplus(x, ASIF_DT * vehicle_asif_f(x, u))
+    phase("entry-points", f"ASIFilter (bench vehicle, K=50, T=2.5, float32, default solver "
+                          f"parameters: polish on, backend torch): 5 calls in "
+                          f"{time.perf_counter() - t0:.3f} s, statuses {dict(stats)}, last u "
+                          f"{[round(float(v), 6) for v in u]}")
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -813,6 +1168,19 @@ def main():
     err = fleet_plain_phase(dev, kept)
     rows["admm_problem"] = (max(rows["admm_problem"][0], err), rows["admm_problem"][1])
     launches["admm_problem"] = counts["admm_problem"]
+
+    vparts = vehicle_asif_path("cuda", dev)
+    vcounts, vkept, vcarry = vehicle_asif_phase(vparts, dev)
+    vehicle_asif_split(vparts, vcarry, dev)
+    err = vehicle_asif_plain_phase(dev, vkept)
+    worst_s, _, worst_p, _ = vehicle_kernel_phase(vparts, vkept, dev)
+    rows["admm_shared"] = (max(rows["admm_shared"][0], err, worst_s), rows["admm_shared"][1])
+    rows["admm_problem"] = (max(rows["admm_problem"][0], worst_p), rows["admm_problem"][1])
+    phase("launches", f"per path (counts set to 0 before each, read after): condensed "
+                      f"{launches['admm_shared']} admm_shared in {STEPS} steps; per-member fleet "
+                      f"{launches['admm_problem']} admm_problem in {FLEET_STEPS} steps; vehicle-asif "
+                      f"{vcounts} in {ASIF_WARM + ASIF_STEPS} steps")
+    entry_points_phase(dev)
     kernels = []
     for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():
         source, replaces = KERNELS[name]

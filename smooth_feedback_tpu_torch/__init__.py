@@ -1,12 +1,13 @@
 """smooth_feedback_tpu_torch: the PyTorch / CUDA port of smooth_feedback_tpu.
 
 Same public names and layout as the JAX package, one module per counterpart.
-It holds the QP types and solver core with two ADMM kernels hand-written in
-CUDA for Hopper (``csrc/admm_shared.cu`` for batches sharing their factors,
-``csrc/admm_problem.cu`` for per-problem factors), ``Rn``, ``SO2``, ``SE2``,
-the collocation mesh, the QP transcription, and the condensed and sparse
-MPC fleet steps.  Importing the package builds nothing; the kernels are
-compiled at first use.
+It holds the QP types and solver (polish, compensated checks, adaptive rho)
+with two ADMM kernels hand-written in CUDA for Hopper (``csrc/admm_shared.cu``
+for batches sharing their factors, ``csrc/admm_problem.cu`` for per-problem
+factors), ``Rn``, ``SO2``, ``SE2`` and ``Bundle``, the collocation mesh, the
+QP transcription, the MPC (condensed and sparse fleet steps, the ``MPC``
+class) and the ASIF safety filter.  Importing the package builds nothing;
+the kernels are compiled at first use.
 """
 
 from . import groups

@@ -9,13 +9,17 @@ Two paths are ported:
   every controller at its own clock and state (``torch.func.vmap`` of the
   transcription) and solve the batch in one ``solve_qp_batch`` call, each
   member with its own factorization unless ``reuse_factors=True`` and the
-  state group is commutative;
+  state group is commutative; ``step.fleet_shared_t`` transcribes once for a
+  fleet on one clock and sets each member's initial-condition bounds;
+  ``time_varying=True`` hands f and cr the absolute time;
 - the condensed, factor-reusing path (``reuse_factors=True, condense=True``):
   the dynamics and initial-condition rows are eliminated once on the host
   (float64), the condensed QP's scaling and KKT inverse are computed once,
   and each fleet step on a common clock costs one vectors-only template
   transcription, a few small GEMMs, one batched solve against the shared
   factors and an affine state recovery.
+
+:class:`MPC` wraps a step and holds its warm start between calls.
 """
 
 from __future__ import annotations
@@ -50,6 +54,12 @@ class MPCWeights(NamedTuple):
     Q: torch.Tensor  # (nx, nx) running state cost
     Qtf: torch.Tensor  # (nx, nx) terminal state cost
     R: torch.Tensor  # (nu, nu) running input cost
+
+
+def default_weights(X: LieGroup, U: LieGroup, dtype=torch.float64, device="cuda") -> MPCWeights:
+    """Identity weights on every state and input direction."""
+    kw = dict(dtype=dtype, device=device)
+    return MPCWeights(Q=torch.eye(X.ndof, **kw), Qtf=torch.eye(X.ndof, **kw), R=torch.eye(U.ndof, **kw))
 
 
 class MPCStepResult(NamedTuple):
@@ -127,12 +137,6 @@ def _build_condensation(qp0: QuadraticProgram, lay: dict, dtype, device):
     )
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 item 8)"
-    )
-
-
 def _zero_ws(nvar: int, ncon: int, dtype, device) -> QPSolution:
     """A zero warm start of the right shapes."""
     kw = dict(dtype=dtype, device=device)
@@ -180,7 +184,10 @@ def make_mpc_step(
 
     ``f(x, u)`` is the body-velocity dynamics, ``xdes``/``udes`` map absolute
     time (a 0-d tensor) to the reference, ``cr(x, u)`` with bounds
-    ``crl``/``cru`` are optional running constraints.  All tensors the
+    ``crl``/``cru`` are optional running constraints.  With
+    ``time_varying=True`` they are ``f(t, x, u)`` and ``cr(t, x, u)`` with
+    absolute time ``t`` (incompatible with ``reuse_factors``: P and A then
+    change between steps).  All tensors the
     callables create must use ``dtype`` and ``device``, and they must run
     under ``torch.func.vmap`` (no Python branch on tensor values).
 
@@ -194,10 +201,13 @@ def make_mpc_step(
     Returns ``(step, init_warmstart)``: ``step(warmstart, t, x)`` runs one
     controller; ``step.fleet(warmstarts, ts, xs)`` runs a fleet on
     per-member clocks (sparse path); ``step.fleet_shared_t(warmstarts, t,
-    xs)`` runs a fleet on a common clock (condensed path);
+    xs)`` runs a fleet on a common clock (both paths);
     ``step.transcribe``/``step.transcribe_vectors`` expose the QP assembly."""
-    if time_varying:
-        _not_ported("time_varying=True")
+    if time_varying and reuse_factors:
+        raise ValueError(
+            "reuse_factors requires step-invariant QP matrices; time-varying "
+            "dynamics/constraints change P/A every step"
+        )
     if condense and not reuse_factors:
         raise ValueError(
             "condense=True eliminates states against the one-time template "
@@ -227,9 +237,14 @@ def make_mpc_step(
         xl_fun = lambda s: xdes(t + s)
         ul_fun = lambda s: udes(t + s)
         dxl_fun = None if dxdes is None else (lambda s: dxdes(t + s))
-        f_ocp = lambda s, x_, u_: f(x_, u_)
+        if time_varying:
+            f_ocp = lambda s, x_, u_: f(t + s, x_, u_)
+        else:
+            f_ocp = lambda s, x_, u_: f(x_, u_)
         if cr is None:
             cr_ocp = lambda s, x_, u_: torch.zeros((0,), **kw)
+        elif time_varying:
+            cr_ocp = lambda s, x_, u_: cr(t + s, x_, u_)
         else:
             cr_ocp = lambda s, x_, u_: cr(x_, u_)
 
@@ -303,7 +318,7 @@ def make_mpc_step(
         return MPCStepResult(*(None if a is None else _index0(a) for a in res))
 
     t_zero = torch.zeros((), **kw)
-    factors_gen = None
+    factors1 = factors_gen = None
     if reuse_factors:
         # template at x = xdes(0): the initial-condition block is exactly I there
         qp0 = transcribe(t_zero, xdes(t_zero))
@@ -326,12 +341,16 @@ def make_mpc_step(
                         f"reuse_factors: QP matrix {name} is not step-invariant "
                         f"(max deviation {err:.3e} at a perturbed (t, x))"
                     )
-        if not condense and X.is_commutative():
-            # the full matrices, IC rows included, are step-invariant: every
-            # member's QP iterates against the template's shared factors
-            factors_gen = QPFactors(*(a[0] for a in qp_factorize(
+        if not condense:
+            # shared (batch-free) template factors: fleet_shared_t iterates
+            # every member against them (its IC rows are the template's
+            # identity rows); step and step.fleet only for a commutative
+            # state, whose full matrices, IC rows included, are step-invariant
+            factors1 = QPFactors(*(a[0] for a in qp_factorize(
                 QuadraticProgram(*(a[None] for a in qp0)), params.qp
             )))
+            if X.is_commutative():
+                factors_gen = factors1
 
     if not condense:
         uvar_B, xvar_L = lay["uvar_B"], lay["xvar_L"]
@@ -357,15 +376,44 @@ def make_mpc_step(
                     sol.primal[:, :xvar_L].reshape(B, N + 1, nx),
                 )
 
-        def _no_shared_t(*a, **k):
-            _not_ported("the sparse common-clock fleet step "
-                        "(step.fleet_shared_t with condense=False)")
+        ce_rows = torch.as_tensor(lay["cecon_B"] + np.arange(nx), device=device)
+
+        def fleet_shared_t(warmstarts: QPSolution, t, xs) -> MPCStepResult:
+            """Fleet step on a common clock ``t``: one transcription at
+            ``x = xdes(t)``, where the initial-condition rows are exactly the
+            identity, shared by the fleet; only those rows' bounds,
+            ``-(xdes(t) (-) x)``, differ per member.  Exact for any state
+            group: ``dr_expinv(c) dx0 = -c`` has the unique solution
+            ``dx0 = -c`` that the identity rows pin, so primals equal the
+            per-member transcription's.  With ``reuse_factors`` the fleet
+            iterates against the template's shared factors."""
+            with ieee_f32_matmul():
+                t = torch.as_tensor(t, **kw)
+                B = int(xs.shape[0])
+                xd = xdes(t)
+                qp1 = transcribe(t, xd)
+                ce_bounds = -vmap(lambda x: X.rminus(xd, x))(xs)  # (B, nx)
+                l_b = qp1.l[None].repeat(B, 1)
+                u_b = qp1.u[None].repeat(B, 1)
+                l_b[:, ce_rows] = ce_bounds
+                u_b[:, ce_rows] = ce_bounds
+                qps = QuadraticProgram(
+                    P=qp1.P[None], q=qp1.q[None].expand(B, -1), A=qp1.A[None], l=l_b, u=u_b
+                )
+                sol = solve_qp_batch(
+                    qps, params.qp, warmstarts if params.warmstart else None, factors1
+                )
+                return _finalize(
+                    sol, warmstarts, t,
+                    sol.primal[:, uvar_B:].reshape(B, N, nu),
+                    sol.primal[:, :xvar_L].reshape(B, N + 1, nx),
+                )
 
         def step(warmstart: QPSolution, t, x) -> MPCStepResult:
             return _one(fleet, warmstart, t, x)
 
         step.fleet = fleet
-        step.fleet_shared_t = _no_shared_t
+        step.fleet_shared_t = fleet_shared_t
         step.transcribe = transcribe
         step.transcribe_vectors = transcribe_vectors
         return step, _zero_ws(lay["Nvar"], lay["Ncon"], dtype, device)
@@ -469,6 +517,87 @@ def make_mpc_step(
     step.transcribe = transcribe
     step.transcribe_vectors = transcribe_vectors
     return step, _zero_ws(uL, max(crL, 1), dtype, device)
+
+
+class MPC:
+    """Stateful wrapper: builds the step once its reference and weights are
+    set and holds the warm start between calls.  ``mpc(t, x) -> (u,
+    status)``; the reference defaults to the identity state and input."""
+
+    def __init__(
+        self,
+        X: LieGroup,
+        U: LieGroup,
+        f: Callable,
+        *,
+        weights: Optional[MPCWeights] = None,
+        params: MPCParams = MPCParams(),
+        cr: Optional[Callable] = None,
+        crl=None,
+        cru=None,
+        Kmesh: int = 4,
+        dtype=torch.float64,
+        device="cuda",
+        time_varying: bool = False,
+    ):
+        self.X, self.U, self.f = X, U, f
+        self.params = params
+        self._kw = dict(dtype=dtype, device=device)
+        self.weights = weights if weights is not None else default_weights(X, U, **self._kw)
+        self.cr, self.crl, self.cru = cr, crl, cru
+        self.Kmesh = Kmesh
+        self.time_varying = time_varying
+        self._xdes = lambda t: X.identity(**self._kw)
+        self._dxdes = None
+        self._udes = lambda t: U.identity(**self._kw)
+        self._step = None
+        self._ws = None
+
+    def _rebuild(self):
+        self._step, self._ws = make_mpc_step(
+            self.X, self.U, self.f, self._xdes, self._udes,
+            weights=self.weights, params=self.params, cr=self.cr, crl=self.crl, cru=self.cru,
+            Kmesh=self.Kmesh, dxdes=self._dxdes, time_varying=self.time_varying, **self._kw,
+        )
+
+    def set_xdes(self, xdes: Callable, dxdes: Optional[Callable] = None):
+        """Desired state trajectory (absolute time) and, optionally, its body
+        velocity."""
+        self._xdes = xdes
+        self._dxdes = dxdes
+        self._step = None
+
+    def set_udes(self, udes: Callable):
+        """Desired input trajectory (absolute time)."""
+        self._udes = udes
+        self._step = None
+
+    def set_xdes_rel(self, xdes_rel: Callable, t0=0.0):
+        """Desired state trajectory in time relative to ``t0``; its body
+        velocity comes from autodiff in time."""
+        self.set_xdes(lambda t: xdes_rel(t - t0))
+
+    def set_udes_rel(self, udes_rel: Callable, t0=0.0):
+        """Desired input trajectory in time relative to ``t0``."""
+        self.set_udes(lambda t: udes_rel(t - t0))
+
+    def set_weights(self, weights: MPCWeights):
+        self.weights = weights
+        self._step = None
+
+    def reset_warmstart(self):
+        if self._ws is not None:
+            self._ws = QPSolution(*(torch.zeros_like(a) for a in self._ws))
+
+    def __call__(self, t, x):
+        """One MPC step at time ``t`` and state ``x``: ``(u, status)``; the
+        whole step result is kept as ``last_result``."""
+        if self._step is None:
+            self._rebuild()
+        res = self._step(self._ws, t, x)
+        self._ws = res.warmstart
+        self.last_result = res
+        return res.u, QPSolutionStatus(int(res.status))
 
 
 def _index0(a):

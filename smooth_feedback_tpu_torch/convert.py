@@ -15,6 +15,7 @@ import torch
 from .controllers.mpc import MPCWeights
 from .qp.solver import QPFactors
 from .qp.types import QPSolution, QuadraticProgram
+from .utils.bounds import ManifoldBounds
 
 
 def _t(a, device, dtype):
@@ -53,3 +54,8 @@ def solution_from_numpy(sol, device="cuda", dtype=torch.float64) -> QPSolution:
 def weights_from_numpy(weights, device="cuda", dtype=torch.float64) -> MPCWeights:
     """``(Q, Qtf, R)`` arrays -> MPCWeights."""
     return MPCWeights(*(_t(a, device, dtype) for a in weights))
+
+
+def bounds_from_numpy(bounds, device="cuda", dtype=torch.float64) -> ManifoldBounds:
+    """``(A, c, l, u)`` arrays (a ManifoldBounds-like tuple) -> ManifoldBounds."""
+    return ManifoldBounds(*(_t(a, device, dtype) for a in bounds))

@@ -86,6 +86,10 @@ class LieGroup:
         z = torch.zeros_like(v)
         return jacfwd(lambda w: self.log(self.compose(self.exp(v), self.exp(w))))(z)
 
+    def normalize(self, g):
+        """Project parameters back onto the group manifold (e.g. unit norm)."""
+        return g
+
     def is_commutative(self) -> bool:
         return False
 
@@ -101,3 +105,22 @@ class LieGroup:
 
     def __repr__(self):
         return type(self).__name__
+
+
+def jacobian_wrt_group(group: LieGroup, f, g, *args, **kwargs):
+    """Right (body-frame) derivative of ``f`` at the group element ``g``:
+    ``d/dw f(g o exp(w), *args)`` at ``w = 0``.  Returns ``(f(g), J)``."""
+    z = torch.zeros((group.ndof,), dtype=g.dtype, device=g.device)
+    fn = lambda w: f(group.rplus(g, w), *args, **kwargs)
+    return f(g, *args, **kwargs), jacfwd(fn)(z)
+
+
+def ad_generators(G: LieGroup, dtype=None, device=None) -> torch.Tensor:
+    """(ndof, ndof, ndof) stack ``adgen[k] = ad(e_k)``.
+
+    ``ad`` is linear in its tangent argument, so ``ad(v) =
+    einsum('kij,k->ij', adgen, v)``, and for a batch-trailing (ndof, B)
+    velocity stack ``einsum('kij,kb->ijb', adgen, v)`` assembles every
+    member's ``ad`` at once."""
+    eye = torch.eye(G.ndof, dtype=dtype, device=device)
+    return torch.stack([G.ad(eye[:, k]) for k in range(G.ndof)])

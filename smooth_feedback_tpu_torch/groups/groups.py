@@ -8,14 +8,15 @@ Group    nparams     ndof  storage
 Rn(n)    n           n     the vector itself
 SO2      2           1     unit complex ``[re, im]``
 SE2      4           3     ``[tx, ty, re, im]``; tangent ``[vx, vy, w]``
+Bundle   sum         sum   the parts' storages concatenated
 =======  ==========  ====  =====================================
 
 Closed forms are given for the hot operations; the rest inherits the
 ``torch.func.jacfwd`` fallbacks of :class:`~.base.LieGroup`.  Every operation
 is written with ``torch.stack``/``torch.cat`` on the element's entries and no
-Python branch on values, so it runs under ``torch.func.vmap``.  SO3, SE3,
-Bundle and the second-order forms (``d2r_exp``/``d2r_expinv``) follow in
-later slices of the port.
+Python branch on values, so it runs under ``torch.func.vmap``.  SO3, SE3
+and the second-order forms (``d2r_exp``/``d2r_expinv``) follow in later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -190,6 +191,78 @@ class _SE2(LieGroup):
     def matrix(self, g):
         z, o = torch.zeros_like(g[0]), torch.ones_like(g[0])
         return _mat([[g[2], -g[3], g[0]], [g[3], g[2], g[1]], [z, z, o]])
+
+
+class Bundle(LieGroup):
+    """Direct product of Lie groups; storage is the concatenated parts (the
+    SE(2) x R^3 vehicle state of benchmarks/asif_bench.py, for one)."""
+
+    def __init__(self, *parts: LieGroup):
+        self.parts = tuple(parts)
+        self.nparams = sum(p.nparams for p in self.parts)
+        self.ndof = sum(p.ndof for p in self.parts)
+        self._poff = [0]
+        self._doff = [0]
+        for p in self.parts:
+            self._poff.append(self._poff[-1] + p.nparams)
+            self._doff.append(self._doff[-1] + p.ndof)
+
+    def _key(self):
+        return ("Bundle",) + tuple(p._key() for p in self.parts)
+
+    def __repr__(self):
+        return "Bundle(" + ", ".join(repr(p) for p in self.parts) + ")"
+
+    def _psplit(self, g):
+        return [g[self._poff[i] : self._poff[i + 1]] for i in range(len(self.parts))]
+
+    def _dsplit(self, v):
+        return [v[self._doff[i] : self._doff[i + 1]] for i in range(len(self.parts))]
+
+    def identity(self, dtype=None, device=None):
+        return torch.cat([p.identity(dtype=dtype, device=device) for p in self.parts])
+
+    def exp(self, v):
+        return torch.cat([p.exp(vi) for p, vi in zip(self.parts, self._dsplit(v))])
+
+    def log(self, g):
+        return torch.cat([p.log(gi) for p, gi in zip(self.parts, self._psplit(g))])
+
+    def compose(self, a, b):
+        return torch.cat(
+            [p.compose(ai, bi) for p, ai, bi in zip(self.parts, self._psplit(a), self._psplit(b))]
+        )
+
+    def inverse(self, g):
+        return torch.cat([p.inverse(gi) for p, gi in zip(self.parts, self._psplit(g))])
+
+    def _blockdiag(self, blocks):
+        """Block-diagonal (ndof, ndof) matrix of the parts' (d, d) blocks,
+        assembled with ``cat`` so that it runs under ``vmap`` and ``jacfwd``."""
+        rows = []
+        for i, blk in enumerate(blocks):
+            left = blk.new_zeros((blk.shape[0], self._doff[i]))
+            right = blk.new_zeros((blk.shape[0], self.ndof - self._doff[i + 1]))
+            rows.append(torch.cat([left, blk, right], dim=1))
+        return torch.cat(rows, dim=0)
+
+    def Ad(self, g):
+        return self._blockdiag([p.Ad(gi) for p, gi in zip(self.parts, self._psplit(g))])
+
+    def ad(self, v):
+        return self._blockdiag([p.ad(vi) for p, vi in zip(self.parts, self._dsplit(v))])
+
+    def dr_exp(self, v):
+        return self._blockdiag([p.dr_exp(vi) for p, vi in zip(self.parts, self._dsplit(v))])
+
+    def dr_expinv(self, v):
+        return self._blockdiag([p.dr_expinv(vi) for p, vi in zip(self.parts, self._dsplit(v))])
+
+    def normalize(self, g):
+        return torch.cat([p.normalize(gi) for p, gi in zip(self.parts, self._psplit(g))])
+
+    def is_commutative(self):
+        return all(p.is_commutative() for p in self.parts)
 
 
 SO2 = _SO2()

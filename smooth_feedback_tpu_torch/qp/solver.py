@@ -14,6 +14,17 @@ Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs a kernel of
 ``qp/cuda_kernel.py``: the shared-matrix kernel against shared factors, the
 per-problem kernel against per-problem factors or none (then every member is
 scaled and factorized here first, in torch).
+
+Options, as in the JAX package: ``polish`` (the masked active-set polish,
+Cholesky of the Schur complement in float64, LU of the quasi-definite
+(n+m) system in float32, with compensated refinement), ``compensated_check``
+(error-free residuals in the stopping check and a certificate of the
+polished point that can upgrade MaxIterations), ``kkt_refine_iters``
+(iterative refinement of each KKT solve) and ``adaptive_rho`` (per-member
+residual balancing with a refactorization at a check where some member
+adapts; per-problem factors on ``"torch"`` only).  The kernels run the
+loop without refinement, compensated checks or rho adaptation, as the
+Pallas kernels do; polish and the certificate run after them.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._precision import ieee_f32_matmul
+from ..utils.compensated import cdot, cmatvec, two_sum
 from .types import QPSolution, QPSolutionStatus, QPSolverParams, QuadraticProgram
 
 _RUNNING = int(QPSolutionStatus.Running)
@@ -30,6 +42,7 @@ _OPTIMAL = int(QPSolutionStatus.Optimal)
 _PRIMAL_INF = int(QPSolutionStatus.PrimalInfeasible)
 _DUAL_INF = int(QPSolutionStatus.DualInfeasible)
 _MAX_ITER = int(QPSolutionStatus.MaxIterations)
+_POLISH_FAILED = int(QPSolutionStatus.PolishFailed)
 _UNKNOWN = int(QPSolutionStatus.Unknown)
 
 
@@ -58,14 +71,6 @@ def _not_ported(option: str, where: str):
 
 
 def _check_params(prm: QPSolverParams):
-    if prm.polish:
-        _not_ported("polish", "ROADMAP Queue 1 item 10")
-    if prm.compensated_check:
-        _not_ported("compensated_check", "ROADMAP Queue 1 item 10")
-    if prm.adaptive_rho:
-        _not_ported("adaptive_rho", "ROADMAP Queue 1 item 10")
-    if prm.kkt_refine_iters > 0:
-        _not_ported("kkt_refine_iters > 0", "ROADMAP Queue 1 item 10")
     if prm.verbose:
         _not_ported("verbose", "ROADMAP Queue 1 item 10")
     if prm.backend == "lane":
@@ -120,21 +125,43 @@ def _ruiz(P, q, A, max_ruiz_iter: int = 10):
 
 def _stopping_check(prm, P, q, A, l, u, x_us, y_us, z_us, dx_us, dy_us):
     """Per-element convergence / infeasibility certificates on UNSCALED data.
-    ``P``/``A`` are shared 2-D or batched 3-D; vectors carry the batch."""
+    ``P``/``A`` are shared 2-D or batched 3-D; vectors carry the batch.
+    Returns ``(status, pres, dres, ratio)``, ``ratio`` the normalized
+    primal-to-dual residual balance that adaptive rho reads."""
     eps_abs, eps_rel = prm.eps_abs, prm.eps_rel
     eps_pinf, eps_dinf = prm.eps_primal_inf, prm.eps_dual_inf
 
     diverged = ~(torch.isfinite(x_us).all(dim=1) & torch.isfinite(y_us).all(dim=1))
 
-    Ax = _mv(A, x_us)
-    pres = _norm_inf(Ax - z_us)
-    Px = _mv(P, x_us)
-    Aty = _mtv(A, y_us)
-    dres = _norm_inf(Px + q + Aty)
-    prim_ok = pres <= eps_abs + eps_rel * torch.maximum(_norm_inf(Ax), _norm_inf(z_us))
+    if prm.compensated_check:
+        # two-float accumulation removes the ~eps |P||x| sqrt(n) evaluation
+        # floor on the residuals
+        Ax, Ax_lo = cmatvec(A, x_us)
+        s, e = two_sum(Ax, -z_us)
+        pres = _norm_inf(s + (e + Ax_lo))
+        Px, Px_lo = cmatvec(P, x_us)
+        Aty, Aty_lo = cdot(A, y_us[:, :, None], dim=1)
+        s, e = two_sum(Px, Aty)
+        s2, e2 = two_sum(s, q)
+        dres = _norm_inf(s2 + (e2 + e + Px_lo + Aty_lo))
+    else:
+        Ax = _mv(A, x_us)
+        pres = _norm_inf(Ax - z_us)
+        Px = _mv(P, x_us)
+        Aty = _mtv(A, y_us)
+        dres = _norm_inf(Px + q + Aty)
+    pscale = torch.maximum(_norm_inf(Ax), _norm_inf(z_us))
+    prim_ok = pres <= eps_abs + eps_rel * pscale
     dscale = torch.maximum(_norm_inf(Px), torch.maximum(_norm_inf(q), _norm_inf(Aty)))
     dual_ok = dres <= eps_abs + eps_rel * dscale
     optimal = prim_ok & dual_ok
+
+    # normalized-residual balance for adaptive rho (OSQP sec. 5.2): ratio > 1
+    # means the primal residual dominates (raise rho), and vice versa
+    tiny = torch.finfo(x_us.dtype).tiny
+    pn = pres / torch.clamp(pscale, min=tiny)
+    dn = dres / torch.clamp(dscale, min=tiny)
+    ratio = torch.where((pn > 0) & (dn > 0), pn / torch.clamp(dn, min=tiny), 1.0)
 
     # primal infeasibility certificate (dy direction)
     E = _norm_inf(dy_us)
@@ -170,7 +197,7 @@ def _stopping_check(prm, P, q, A, l, u, x_us, y_us, z_us, dx_us, dy_us):
     st = torch.where(prim_inf, _PRIMAL_INF, st)
     st = torch.where(optimal, _OPTIMAL, st)
     st = torch.where(diverged, _UNKNOWN, st).to(torch.int32)
-    return st, pres, dres
+    return st, pres, dres, ratio
 
 
 # -------------------------------------------------------------------- factors
@@ -221,18 +248,23 @@ def _factorize(P, q, A, l, u, prm):
 
     eye = torch.eye(n, dtype=dt, device=dev)
     Mred = Ps + prm.sigma * eye[None] + torch.einsum("bmn,bm,bmk->bnk", As, rho, As)
-    L, info = torch.linalg.cholesky_ex(Mred)
-    fact_fail = (info != 0) | ~torch.isfinite(L).all(dim=2).all(dim=1)
-    # neutralize broken factors so frozen elements don't poison the batch
-    L = torch.where(fact_fail[:, None, None], eye[None], L)
-
-    # explicit SPD inverse M^{-1} = L^{-T} L^{-1}
-    Linv = torch.linalg.solve_triangular(L, eye.expand(B, n, n), upper=False)
-    Minv = torch.einsum("bkn,bkm->bnm", Linv, Linv)
-
+    Minv, fact_fail = _spd_inverse(Mred)
     return QPFactors(
         c=c, sx=sx, sy=sy, rho=rho, Ps=Ps, As=As, Mred=Mred, Minv=Minv, fact_ok=~fact_fail
     )
+
+
+def _spd_inverse(M):
+    """Explicit inverse ``M^{-1} = L^{-T} L^{-1}`` of a batch of SPD matrices
+    and a per-member failure flag; a failed member's factor is replaced by
+    the identity so that frozen members do not poison the batch."""
+    B, n, _ = M.shape
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    L, info = torch.linalg.cholesky_ex(M)
+    bad = (info != 0) | ~torch.isfinite(L).all(dim=2).all(dim=1)
+    L = torch.where(bad[:, None, None], eye[None], L)
+    Linv = torch.linalg.solve_triangular(L, eye.expand(B, n, n), upper=False)
+    return torch.einsum("bkn,bkm->bnm", Linv, Linv), bad
 
 
 def qp_factorize(qp: QuadraticProgram, prm: QPSolverParams = QPSolverParams()) -> QPFactors:
@@ -245,8 +277,139 @@ def qp_factorize(qp: QuadraticProgram, prm: QPSolverParams = QPSolverParams()) -
 # -------------------------------------------------------------------- solver
 
 
-def _finalize_solution(P, q, c, sx, sy, x, y, status, iters, pres, dres):
-    """Unscale and assemble the solution (``polish=False``)."""
+def _polish(prm, P, q, A, l, u, c, sx, sy, x, y):
+    """Masked active-set polish in scaled variables.
+
+    The reduced KKT system over the active constraints is embedded in a fixed
+    (n+m) system where inactive multiplier rows become ``-nu_i = 0``, so the
+    shapes do not depend on the active set.  ``P``/``A`` are shared 2-D (the
+    scalings then equal for every member: the scaled matrices stay 2-D) or
+    batched 3-D.  Returns ``(x_pol, y_pol, ok)``."""
+    dt, dev = x.dtype, x.device
+    B, n = x.shape
+    m = y.shape[1]
+    eps = torch.finfo(dt).eps
+
+    lower_act = (y < -100 * eps) & torch.isfinite(l)
+    upper_act = (y > 100 * eps) & torch.isfinite(u)
+    # equality rows are active at every solution, whatever the multiplier
+    eq_row = torch.isfinite(l) & ((u - l) <= 0)
+    upper_act = (upper_act | eq_row) & ~lower_act
+    act = lower_act | upper_act
+
+    if P.dim() == 2:
+        Ps = c[0] * sx[0][:, None] * sx[0][None, :] * P
+        As = sy[0][:, None] * A * sx[0][None, :]
+    else:
+        Ps = c[:, None, None] * sx[:, :, None] * sx[:, None, :] * P
+        As = sy[:, :, None] * A * sx[:, None, :]
+    qs = c[:, None] * sx * q
+    ls = sy * l
+    us = sy * u
+
+    As_act = As * act.to(dt)[:, :, None]  # (B, m, n)
+    # Perturbed system Hp = [[Ps + delta I, Aa'], [Aa, -Dd]] with Dd > 0
+    # diagonal (delta on active rows, 1 on decoupled inactive rows).
+    #   float64: SPD Schur complement + Cholesky (absorbs the 1/delta ~ 1e6
+    #            conditioning of the Schur form);
+    #   float32: LU of the full quasi-definite system (the Schur form
+    #            overflows float32; pivoting keeps the +-delta blocks intact).
+    Dd = torch.where(act, torch.full_like(y, prm.delta), torch.ones_like(y))  # (B, m)
+    h_x = -qs
+    h_nu = torch.where(act, torch.where(lower_act, ls, us), 0.0)
+    eye_n = torch.eye(n, dtype=dt, device=dev)
+
+    if dt == torch.float64:
+        S = Ps + prm.delta * eye_n + torch.einsum("bmn,bm,bmk->bnk", As_act, 1.0 / Dd, As_act)
+        L, info = torch.linalg.cholesky_ex(S)
+        fact_ok = (info == 0) & torch.isfinite(L).all(dim=2).all(dim=1)
+        L = torch.where(fact_ok[:, None, None], L, eye_n)
+
+        def hp_solve(r_x, r_nu):
+            rhs = r_x + torch.einsum("bmn,bm->bn", As_act, r_nu / Dd)
+            tt = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+            xs_ = torch.linalg.solve_triangular(L.mT, tt, upper=True)[..., 0]
+            nus = (torch.einsum("bmn,bn->bm", As_act, xs_) - r_nu) / Dd
+            return xs_, nus
+
+    else:
+        top = torch.cat([(Ps + prm.delta * eye_n).expand(B, n, n), As_act.mT], dim=2)
+        bottom = torch.cat([As_act, torch.diag_embed(-Dd)], dim=2)
+        LU, piv, _ = torch.linalg.lu_factor_ex(torch.cat([top, bottom], dim=1))
+        fact_ok = torch.isfinite(LU).all(dim=2).all(dim=1)
+
+        def hp_solve(r_x, r_nu):
+            r = torch.cat([r_x, r_nu], dim=1)
+            t = torch.linalg.lu_solve(LU, piv, r[..., None])[..., 0]
+            return t[:, :n], t[:, n:]
+
+    x_t = torch.zeros((B, n), dtype=dt, device=dev)
+    nu_t = torch.zeros((B, m), dtype=dt, device=dev)
+    for _ in range(prm.polish_iter):
+        # residual of the unperturbed system H = [[Ps, Aa'], [Aa, 0]],
+        # compensated: in plain float32 its ~eps |H||t| evaluation noise
+        # caps what iterative refinement recovers
+        hi1, lo1 = cmatvec(Ps, x_t)
+        hi2, lo2 = cdot(As_act, nu_t[:, :, None], dim=1)
+        s, e = two_sum(hi1, hi2)
+        r_x = (h_x - s) - (e + lo1 + lo2)
+        hi3, lo3 = cmatvec(As_act, x_t)
+        r_nu = (h_nu - hi3) - lo3
+        dx_, dnu_ = hp_solve(r_x, r_nu)
+        x_t = x_t + dx_
+        nu_t = nu_t + dnu_
+
+    ok = fact_ok & torch.isfinite(x_t).all(dim=1) & torch.isfinite(nu_t).all(dim=1)
+    return x_t, torch.where(act, nu_t, y), ok
+
+
+def _certify_point(prm, P, q, A, l, u, primal, dual):
+    """Compensated KKT certificate at an UNSCALED ``(primal, dual)`` point
+    (the polished one): primal feasibility is the distance of ``A x`` to
+    ``[l, u]``, dual stationarity ``|P x + q + A' y|_inf``, both with
+    error-free accumulation.  Returns ``(pres, dres, passed)``."""
+    Ax, Ax_lo = cmatvec(A, primal)
+    z = torch.clamp(Ax + Ax_lo, l, u)
+    s, e = two_sum(Ax, -z)
+    pres = _norm_inf(s + (e + Ax_lo))
+    Px, Px_lo = cmatvec(P, primal)
+    Aty, Aty_lo = cdot(A, dual[:, :, None], dim=1)
+    s, e = two_sum(Px, Aty)
+    s2, e2 = two_sum(s, q)
+    dres = _norm_inf(s2 + (e2 + e + Px_lo + Aty_lo))
+    prim_ok = pres <= prm.eps_abs + prm.eps_rel * torch.maximum(_norm_inf(Ax), _norm_inf(z))
+    dual_ok = dres <= prm.eps_abs + prm.eps_rel * torch.maximum(
+        _norm_inf(Px), torch.maximum(_norm_inf(q), _norm_inf(Aty))
+    )
+    finite = torch.isfinite(primal).all(dim=1) & torch.isfinite(dual).all(dim=1)
+    return pres, dres, finite & prim_ok & dual_ok
+
+
+def _finalize_solution(prm, P, q, A, l, u, c, sx, sy, x, y, status, iters, pres, dres):
+    """Polish (``prm.polish``), then unscale and assemble the solution.
+
+    Only Optimal members take the polished point; a failed polish turns an
+    Optimal member into PolishFailed.  Under ``compensated_check`` a
+    MaxIterations member whose polished point passes the compensated
+    certificate becomes Optimal, and members that take the polished point
+    report the residuals measured there."""
+    if prm.polish:
+        x_pol, y_pol, ok = _polish(prm, P, q, A, l, u, c, sx, sy, x, y)
+        is_opt = status == _OPTIMAL
+        use = is_opt & ok
+        if prm.compensated_check:
+            pres_p, dres_p, pass_p = _certify_point(
+                prm, P, q, A, l, u, sx * x_pol, sy * y_pol / c[:, None]
+            )
+            upgrade = (status == _MAX_ITER) & ok & pass_p
+            use = use | upgrade
+            status = torch.where(upgrade, _OPTIMAL, status)
+            pres = torch.where(use, pres_p, pres)
+            dres = torch.where(use, dres_p, dres)
+        x = torch.where(use[:, None], x_pol, x)
+        y = torch.where(use[:, None], y_pol, y)
+        status = torch.where(is_opt & ~ok, _POLISH_FAILED, status).to(torch.int32)
+
     primal = sx * x
     dual = sy * y / c[:, None]
     objective = (primal * (0.5 * _mv(P, primal) + q)).sum(dim=1)
@@ -384,6 +547,12 @@ def per_problem_kernel_args(
 
 def _solve_qp_batch_impl(qp, prm, warmstart, factors):
     P, q, A, l, u, shared = _batch_view(qp, factors)
+    if prm.adaptive_rho and (prm.backend == "cuda" or shared):
+        raise ValueError(
+            "adaptive_rho requires per-problem factors on backend='torch' (shared-factor "
+            "batches share one rho across the fleet, and the CUDA kernels keep their "
+            "factorization on chip)"
+        )
     dt, dev = A.dtype, A.device
     B = q.shape[0]
     inf = float("inf")
@@ -421,15 +590,31 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
                 prm, *_kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
             )
         return _finalize_solution(
-            P, q, cB, sxB, syB, x.to(dt), y.to(dt), status, iters, pres.to(dt), dres.to(dt)
+            prm, P, q, A, l, u, cB, sxB, syB, x.to(dt), y.to(dt), status, iters,
+            pres.to(dt), dres.to(dt),
         )
 
     if shared:
         rho = rho[None, :]
-        Minv_mv = lambda r: r @ Minv.T
+        mv = lambda M, r: r @ M.T
     else:
-        Minv_mv = lambda r: torch.einsum("bnm,bm->bn", Minv, r)
+        mv = lambda M, r: torch.einsum("bnm,bm->bn", M, r)
     alpha = prm.alpha
+    n_refine = max(0, prm.kkt_refine_iters)
+
+    def Msolve(Minv_, Mred_, r):
+        """``Mred^{-1} r`` through the explicit inverse, with ``n_refine``
+        sweeps of iterative refinement against ``Mred``."""
+        t = mv(Minv_, r)
+        for _ in range(n_refine):
+            t = t + mv(Minv_, r - mv(Mred_, t))
+        return t
+
+    if prm.adaptive_rho:
+        # rows whose rho is pinned (unbounded) never adapt; the loop-invariant
+        # part of the reduced KKT matrix is hoisted
+        rho_pinned = (l == -inf) & (u == inf)
+        M0 = Ps + prm.sigma * torch.eye(A.shape[-1], dtype=dt, device=dev)[None]
 
     x, z, y = x0, z0, y0
     status = status0
@@ -441,7 +626,7 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
     while it < prm.max_iter and bool((status == _RUNNING).any()):
         x_old, y_old = x, y
         rhs = prm.sigma * x - qs + _mtv(As, rho * z - y)
-        xt = Minv_mv(rhs)
+        xt = Msolve(Minv, Mred, rhs)
         zt = _mv(As, xt)
 
         xn = alpha * xt + (1 - alpha) * x
@@ -449,8 +634,9 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
         yn = y + rho * (alpha * zt + (1 - alpha) * z - zn)
 
         # == (1 % k) so stop_check_iter == 1 means "every iteration"
-        if it % k == 1 % k:
-            new_status, pres_n, dres_n = _stopping_check(
+        check = it % k == 1 % k
+        if check:
+            new_status, pres_n, dres_n, ratio = _stopping_check(
                 prm, P, q, A, l, u,
                 sxB * xn, syB * yn / cB[:, None], zn / syB,
                 sxB * (xn - x_old), syB * (yn - y_old) / cB[:, None],
@@ -470,8 +656,27 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
         dres = torch.where(run, dres_n, dres)
         it += 1
 
+        if prm.adaptive_rho and check:
+            # residual balancing: rho <- rho sqrt(pres_n / dres_n) for the
+            # members still running whose imbalance leaves the tolerance
+            # band; ratio is 1 between checks, so only a check can adapt
+            mult = torch.sqrt(ratio)
+            tol = prm.adaptive_rho_tol
+            adapt = (new_status == _RUNNING) & run & ((mult > tol) | (mult < 1.0 / tol))
+            if bool(adapt.any()):
+                mult = torch.where(adapt, mult, 1.0)
+                rho_new = torch.clamp(rho * mult[:, None], 1e-6, 1e6)
+                rho_new = torch.where(rho_pinned, 1e-6, rho_new)
+                Mred_n = M0 + torch.einsum("bmn,bm,bmk->bnk", As, rho_new, As)
+                Minv_n, bad = _spd_inverse(Mred_n)
+                # a failed refactorization keeps the previous rho and factors
+                keep = bad[:, None]
+                rho = torch.where(keep, rho, rho_new)
+                Mred = torch.where(keep[..., None], Mred, Mred_n)
+                Minv = torch.where(keep[..., None], Minv, Minv_n)
+
     status = torch.where(status == _RUNNING, _MAX_ITER, status).to(torch.int32)
-    return _finalize_solution(P, q, cB, sxB, syB, x, y, status, iters, pres, dres)
+    return _finalize_solution(prm, P, q, A, l, u, cB, sxB, syB, x, y, status, iters, pres, dres)
 
 
 def solve_qp(

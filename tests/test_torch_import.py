@@ -25,7 +25,8 @@ def test_port_imports_without_jax():
     root (no install assumed) and leaves jax out of sys.modules; importing
     builds nothing."""
     mods = list(_modules())
-    for m in ("qp.cuda_kernel", "groups._series", "groups.groups", "controllers.mpc"):
+    for m in ("qp.cuda_kernel", "groups._series", "groups.groups", "controllers.mpc",
+              "controllers.asif", "utils.compensated", "utils.bounds", "utils.linalg"):
         assert f"smooth_feedback_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -231,28 +231,36 @@ def test_static_reference_f64():
 
 
 def test_unported_paths_raise():
-    """Combinations the port does not hold yet raise NotImplementedError
-    (time_varying, the sparse common-clock fleet step, per-member clocks on
-    the condensed path); condense without reuse_factors raises ValueError,
-    as in the JAX package."""
+    """The combinations the JAX package refuses raise as there: per-member
+    clocks on the condensed path (NotImplementedError), condense without
+    reuse_factors and time_varying with reuse_factors (ValueError).  The
+    paths earlier slices refused now run: time_varying, and the sparse
+    common-clock fleet step (here on the template's shared factors, equal to
+    the per-member fleet on one clock)."""
     qp = QPSolverParams(**BENCH_QP)
 
-    def build(**kw):
+    def build(f=lambda x, u: torch.stack([x[1], u[0]]), **kw):
         return make_mpc_step(
-            Rn(2), Rn(1), lambda x, u: torch.stack([x[1], u[0]]),
+            Rn(2), Rn(1), f,
             lambda t: torch.zeros(2, dtype=torch.float64),
             lambda t: torch.zeros(1, dtype=torch.float64),
             weights=weights_from_numpy(WEIGHTS), params=MPCParams(K=8, qp=qp),
             device="cpu", **kw,
         )
 
-    with pytest.raises(NotImplementedError):
-        build(time_varying=True)
     with pytest.raises(ValueError, match="reuse_factors"):
         build(condense=True)
+    tv_f = lambda t, x, u: torch.stack([x[1], u[0]])
+    with pytest.raises(ValueError, match="reuse_factors"):
+        build(tv_f, time_varying=True, reuse_factors=True)
+    tv, ws0 = build(tv_f, time_varying=True)
+    assert int(tv(ws0, 0.0, torch.tensor([0.3, 0.0], dtype=torch.float64)).status) == 0
     sparse, ws0 = build(reuse_factors=True)
-    with pytest.raises(NotImplementedError):
-        sparse.fleet_shared_t(ws0, 0.0, torch.zeros(1, 2, dtype=torch.float64))
+    xs = torch.tensor([[0.3, 0.0], [-0.2, 0.1]], dtype=torch.float64)
+    ws = type(ws0)(*(a.expand((2,) + a.shape) for a in ws0))
+    r_shared = sparse.fleet_shared_t(ws, 0.0, xs)
+    r_fleet = sparse.fleet(ws, 0.0, xs)
+    torch.testing.assert_close(r_shared.u, r_fleet.u, rtol=0, atol=1e-12)
     t_step, ws0 = _torch_step(8, qp)
     with pytest.raises(NotImplementedError):
         t_step.fleet(ws0, 0.0, torch.zeros(1, 2, dtype=torch.float64))

@@ -148,17 +148,17 @@ def test_warmstart_like_matches_jax():
 
 
 def test_solve_qp_single_and_unported_options():
-    """The unbatched wrapper solves a box QP; options this slice does not
-    port raise NotImplementedError."""
+    """The unbatched wrapper solves a box QP, with and without polish (the
+    default, which lands on the exact solution); the options still unported
+    (backend="lane", verbose) raise NotImplementedError."""
     qp = qp_from_numpy((np.eye(2), [-4.0, 0.25], np.eye(2), [-1.0, -1.0], [1.0, 1.0]))
     sol = solve_qp(qp, QPSolverParams(polish=False))
     assert int(sol.status) == QPSolutionStatus.Optimal
     np.testing.assert_allclose(sol.primal.numpy(), [1.0, -0.25], atol=1e-3)
-    for kw in (
-        dict(), dict(polish=False, compensated_check=True),
-        dict(polish=False, adaptive_rho=True), dict(polish=False, kkt_refine_iters=1),
-        dict(polish=False, backend="lane"), dict(polish=False, verbose=True),
-    ):
+    sol = solve_qp(qp)
+    assert int(sol.status) == QPSolutionStatus.Optimal
+    np.testing.assert_allclose(sol.primal.numpy(), [1.0, -0.25], atol=1e-12)
+    for kw in (dict(polish=False, backend="lane"), dict(polish=False, verbose=True)):
         with pytest.raises(NotImplementedError):
             solve_qp(qp, QPSolverParams(**kw))
 
