@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU.
 
-Drives the port's two paths, each through its hand-written ADMM kernel:
+Drives the port's paths, those with a QP through the hand-written ADMM
+kernels:
 
 - the condensed double-integrator MPC fleet (K=50 horizon, n = m = 52 QP,
   B = 8192 controllers on one clock, float32, the bench.py configuration)
@@ -9,7 +10,15 @@ Drives the port's two paths, each through its hand-written ADMM kernel:
 - the README Quickstart's SE(2) vehicle fleet on per-member clocks (K=30,
   n = 163, m = 99 sparse QP, B = 1024, float32, every member transcribed and
   factorized on its own) through the per-problem kernel
-  (csrc/admm_problem.cu).
+  (csrc/admm_problem.cu);
+- the SE(2) x R^3 vehicle MPC + ASIF fleet of benchmarks/asif_bench.py
+  (B = 256), its MPC through the shared-matrix kernel;
+- benchmarks/ekf_bench.py's EKF fleets (SE(2) and SO(3), B = 4096, float32;
+  the fleet, square-root fleet and vmap layouts; no kernel: dense batched
+  algebra);
+- examples/output_feedback_vehicle.py's EKF -> MPC -> ASIF loop (40 of its
+  800 steps), both QPs through the per-problem kernel at B = 1;
+- examples/pid_se2.py (2000 steps) and a spline round trip on SE(2), SO(3).
 
 Phases:
 
@@ -30,8 +39,16 @@ Phases:
   4. each path: closed-loop fleet steps with every launch count set to 0
      just before and read just after, step time, the Optimal share, and the
      first steps again on the plain path;
-  5. a JSON line of the kernels (with each one's bound on this card), the
-     card's name and power limit, then the result line.
+  5. ekf-fleet: the three layouts held against each other and against the
+     CPU float64 port, rates over 100 chained steps, a step split, the
+     square-root P checked PSD, the batched library calls timed against
+     the lane helpers; output-feedback: the loop with the barrier on the
+     true state, the estimation error, one admm_problem launch per QP, a
+     step split, the first steps again on the torch loop, the kernel held
+     against its plain version at the loop's two shapes; pid-spline;
+  6. a JSON line of the kernels (with each one's bound on this card, its
+     launches on each path and the shapes it was held at), the card's name
+     and power limit, then the result line.
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed phase exits non-zero.
@@ -65,10 +82,33 @@ TWIST = (0.5, 0.0, 0.3)
 ASIF_B = 256  # the bench's default fleet
 ASIF_MPC_K = 30
 ASIF_DT = 0.025
-ASIF_WARM = 40
+ASIF_WARM = 20  # 40 before the EKF and output-feedback phases joined the smoke
 ASIF_STEPS = 40
 ASIF_PLAIN_STEPS = 5
 ASIF_T = 2.5
+
+# benchmarks/ekf_bench.py's fleets, nothing cut
+EKF_B = 4096
+EKF_STEPS = 100
+EKF_REPS = 2  # ekf_bench.py takes the best of 3
+EKF_TAU = 0.05
+EKF_CHECK_STEPS = 10
+EKF_CPU_STEPS = 3
+
+# examples/output_feedback_vehicle.py's loop, OF_STEPS of its 800 steps
+OF_STEPS = 40
+OF_PLAIN_STEPS = 5
+OF_KERNEL_STEPS = 10
+OF_DT = 0.025
+OF_LANDMARKS = ((3.0, 1.0), (-2.0, 4.0), (1.0, -3.0), (4.0, -1.0))
+
+# examples/pid_se2.py
+PID_STEPS = 2000
+PID_DT = 0.01
+# card f32 splines against the CPU f64 port, (g, body velocity, body
+# acceleration): the phase run on a CPU in f32 lands within 2.4e-7, 1.1e-6
+# and 9.0e-6 of f64; about forty times that
+SPLINE_TOL = (1e-5, 5e-5, 5e-4)
 
 KERNELS = {
     "admm_shared": ("smooth_feedback_tpu_torch/csrc/admm_shared.cu",
@@ -326,9 +366,9 @@ def residual_slack(qps, args, out, prm):
     return float(ratio.max()) if bool(opt.any()) else 0.0
 
 
-def fixed_iteration_check(wrapper, args, qprm, start="cold inputs"):
+def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_ITERS):
     """All tolerances 0: no member can stop, so kernel and plain version run
-    exactly FIXED_ITERS iterations and their iterates compare directly, each
+    exactly ``iters`` iterations and their iterates compare directly, each
     vector within ITER_TOL of its own scale plus twice the f32 plain
     version's distance from an f64 run (the rounding floor).  Returns the
     largest absolute difference."""
@@ -336,13 +376,13 @@ def fixed_iteration_check(wrapper, args, qprm, start="cold inputs"):
 
     MAX_ITER = int(QPSolutionStatus.MaxIterations)
     prm = dataclasses.replace(qprm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
-                              eps_dual_inf=0.0, max_iter=FIXED_ITERS)
+                              eps_dual_inf=0.0, max_iter=iters)
     k = wrapper(prm, *args)
     r = admm_iterate_reference(prm, *args)
     d = admm_iterate_reference(prm, *f64(args))
     torch.cuda.synchronize()
     ran = bool((k[3] == MAX_ITER).all() and (r[3] == MAX_ITER).all()
-               and (k[4] == FIXED_ITERS).all() and (r[4] == FIXED_ITERS).all())
+               and (k[4] == iters).all() and (r[4] == iters).all())
     rows, worst, ok = [], 0.0, True
     for name, kt, rt, dt in zip("xzy", k[:3], r[:3], d[:3]):
         err = float((kt - rt).abs().max())
@@ -351,7 +391,7 @@ def fixed_iteration_check(wrapper, args, qprm, start="cold inputs"):
         rows.append(f"{name} {err:.3e} (f32 plain - f64 {floor:.3e}, scale {scale:.3e})")
         worst = max(worst, err)
         ok = ok and err <= ITER_TOL * scale + 2 * floor
-    phase("kernel", f"fixed {FIXED_ITERS} iterations, all tolerances 0, {start}: every "
+    phase("kernel", f"fixed {iters} iterations, all tolerances 0, {start}: every "
                     f"member ran them in both: {ran}; max |kernel - plain| " + ", ".join(rows)
                     + f" (bound {ITER_TOL:g} x scale + 2 x floor)")
     require(ran, "with all tolerances 0 a member stopped before max_iter")
@@ -839,12 +879,12 @@ def vehicle_asif_f(x, u):
     )
 
 
-def asif_filter(dev):
+def asif_filter(dev, dtype=torch.float32):
     """The bench's barrier (clearance of the obstacle at (0, -2.3)), backup
-    law, input weights and input bounds, float32 on ``dev``."""
+    law, input weights and input bounds, in ``dtype`` on ``dev``."""
     from smooth_feedback_tpu_torch.utils import ManifoldBounds
 
-    kw = dict(dtype=torch.float32, device=dev)
+    kw = dict(dtype=dtype, device=dev)
     obstacle = torch.tensor([0.0, -2.3], **kw)
     return dict(
         h=lambda t, x: torch.linalg.vector_norm(x[:2] - obstacle)[None] - 0.7,
@@ -1147,6 +1187,542 @@ def entry_points_phase(dev):
                           f"{[round(float(v), 6) for v in u]}")
 
 
+# --------------------------------------------------- EKF fleets (ekf_bench.py)
+
+
+def ekf_problem(name, dev, dtype=torch.float32):
+    """benchmarks/ekf_bench.py's problem on ``name`` ("SE(2)" or "SO(3)"):
+    ``(G, dyn, meas, Q, R)``, twist 0.1 (1..ndof), meas = G.log, Q = 0.01 I,
+    R = 0.05 I."""
+    from smooth_feedback_tpu_torch.groups import SE2, SO3
+
+    G = {"SE(2)": SE2, "SO(3)": SO3}[name]
+    kw = dict(dtype=dtype, device=dev)
+    twist = 0.1 * torch.arange(1, G.ndof + 1, **kw)
+    eye = torch.eye(G.ndof, **kw)
+    return G, (lambda t, g: twist), G.log, 0.01 * eye, 0.05 * eye
+
+
+def ekf_layouts(G, dyn, meas, Q, R):
+    """``{layout: (reset, step, cov)}`` for the three layouts of
+    ekf_bench.py: ``step(state, noise)`` is one Euler predict over EKF_TAU
+    and one update with ``y = meas(g) + noise`` taken at the pre-step
+    estimate; ``cov(state)`` is each member's P, (B, n, n)."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch import estimators as E
+
+    def fleet_step(s, noise):
+        y = vmap(meas)(s.g) + noise
+        return E.ekf_fleet_update(G, meas, E.ekf_fleet_predict(G, dyn, s, Q, EKF_TAU), y, R)
+
+    def sqrt_step(s, noise):
+        y = vmap(meas)(s.g) + noise
+        return E.sqrt_ekf_fleet_update(G, meas, E.sqrt_ekf_fleet_predict(G, dyn, s, Q, EKF_TAU), y, R)
+
+    one = vmap(lambda si, yi: E.ekf_update(G, meas, E.ekf_predict(G, dyn, si, Q, EKF_TAU), yi, R))
+
+    def sqrt_cov(s):
+        S = s.St.movedim(-1, 0)
+        return S @ S.mT
+
+    return {
+        "fleet": (lambda g: E.ekf_fleet_reset(G, g), fleet_step,
+                  lambda s: E.ekf_fleet_states(G, s).P),
+        "sqrt fleet": (lambda g: E.sqrt_ekf_fleet_reset(G, g), sqrt_step, sqrt_cov),
+        "vmap": (lambda g: E.EKFState(g, torch.eye(G.ndof, dtype=g.dtype, device=g.device)
+                                      .expand(g.shape[0], G.ndof, G.ndof)),
+                 lambda s, noise: one(s, vmap(meas)(s.g) + noise), lambda s: s.P),
+    }
+
+
+# f32 against the CPU f64 port on the first EKF_CPU_STEPS steps, and the
+# layouts against each other after EKF_CHECK_STEPS: this phase run on a CPU
+# (the wrappers' plain versions, f32 against f64, B = 4096) lands within
+# 2.6e-7 in g and 1.8e-7 in P of the f64 port over the first 3 steps, and
+# its layouts within 4.8e-7 of each other after 10; the card's f32 differs
+# from the CPU's in summation order and FMA contraction.  So 2e-5 (forty
+# times that floor) for every comparison below.  The
+# square-root form propagates P + h (A P + P A' + Q) as Phi P Phi' + h Q, so
+# it differs from the other two by O(h^2) per step (~1e-3 here): it is held
+# to the other layouts through that difference, which the CPU f64 run gives.
+EKF_TOL = 2e-5
+
+
+def ekf_diff(G, a, b, cov_a, cov_b):
+    """Largest |a.g (-) b.g| and |P_a - P_b| over the fleet."""
+    from torch.func import vmap
+
+    dg = float(vmap(G.rminus)(a.g, b.g).abs().max())
+    return dg, float((cov_a(a) - cov_b(b)).abs().max())
+
+
+def ekf_fleet_phase(dev):
+    """ekf_bench.py's fleets on the card, nothing cut: SE(2) and SO(3), B =
+    4096, float32, the three layouts; held against each other and against
+    the CPU f64 port; rates over EKF_STEPS chained steps (best of EKF_REPS
+    after a warm-up) with fresh measurement noise a step; a synchronised
+    split of one step; the square-root fleet's P checked PSD after the
+    timed runs; the layout's linear algebra timed against the lane helpers
+    it replaces.  Returns ``{(group, layout): (rate, ms a step)}``."""
+    from torch.func import vmap
+
+    rates = {}
+    for name in ("SE(2)", "SO(3)"):
+        G, dyn, meas, Q, R = ekf_problem(name, dev)
+        lay = ekf_layouts(G, dyn, meas, Q, R)
+        # states exp(0.2 N(0, I)), each member G.random(gen, 0.2) drawn at once
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        g0 = vmap(G.exp)(0.2 * torch.randn((EKF_B, G.ndof), generator=gen, device=dev))
+        noise = 0.05 * torch.randn((EKF_CHECK_STEPS, EKF_B, G.ndof), generator=gen, device=dev)
+        Gc, dync, measc, Qc, Rc = ekf_problem(name, "cpu", torch.float64)
+        lay_c = ekf_layouts(Gc, dync, measc, Qc, Rc)
+        end, end_c = {}, {}
+        for lname, (reset, step, cov) in lay.items():
+            reset_c, step_c, cov_c = lay_c[lname]
+            s, sc, worst = reset(g0), reset_c(g0.double().cpu()), (0.0, 0.0)
+            for k in range(EKF_CHECK_STEPS):
+                s = step(s, noise[k])
+                sc = step_c(sc, noise[k].double().cpu())
+                if k < EKF_CPU_STEPS:
+                    card = type(s)(*(a.double().cpu() for a in s))
+                    worst = tuple(map(max, worst, ekf_diff(Gc, card, sc, cov_c, cov_c)))
+            end[lname], end_c[lname] = type(s)(*(a.double().cpu() for a in s)), sc
+            phase("ekf-fleet", f"{name} {lname}: card f32 against the CPU f64 port over the first "
+                               f"{EKF_CPU_STEPS} steps: max |dg| {worst[0]:.3e}, max |dP| "
+                               f"{worst[1]:.3e} (bound {EKF_TOL:g})")
+            require(max(worst) <= EKF_TOL, f"{name} {lname} differs from the CPU f64 port")
+        covs = {ln: lay_c[ln][2] for ln in lay_c}
+        fv = ekf_diff(Gc, end["fleet"], end["vmap"], covs["fleet"], covs["vmap"])
+        # the square-root layout through its O(h^2) difference from the fleet
+        d_card = (vmap(Gc.rminus)(end["sqrt fleet"].g, end["fleet"].g),
+                  covs["sqrt fleet"](end["sqrt fleet"]) - covs["fleet"](end["fleet"]))
+        d_cpu = (vmap(Gc.rminus)(end_c["sqrt fleet"].g, end_c["fleet"].g),
+                 covs["sqrt fleet"](end_c["sqrt fleet"]) - covs["fleet"](end_c["fleet"]))
+        sq = tuple(float((a - b).abs().max()) for a, b in zip(d_card, d_cpu))
+        phase("ekf-fleet", f"{name}: layouts after {EKF_CHECK_STEPS} steps from the same inputs on "
+                           f"the card: fleet against vmap max |dg| {fv[0]:.3e} max |dP| {fv[1]:.3e}; "
+                           f"square-root fleet against fleet, less the same difference in the CPU "
+                           f"f64 run ({float(d_cpu[1].abs().max()):.3e} in P, the O(h^2) of its "
+                           f"discrete propagation): |dg| {sq[0]:.3e} |dP| {sq[1]:.3e} (bound "
+                           f"{EKF_TOL:g})")
+        require(max(fv + sq) <= EKF_TOL, f"{name}: the layouts disagree on the card")
+
+        # rates, as ekf_bench.py takes them
+        for lname, (reset, step, cov) in lay.items():
+            def run():
+                s = reset(g0)
+                for _ in range(EKF_STEPS):
+                    s = step(s, 0.05 * torch.randn((EKF_B, G.ndof), generator=gen, device=dev))
+                return s
+
+            run()
+            torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(EKF_REPS):
+                t0 = time.perf_counter()
+                s = run()
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            rates[name, lname] = (EKF_B * EKF_STEPS / best, best * 1e3 / EKF_STEPS)
+            phase("ekf-fleet", f"{name} {lname}: {rates[name, lname][0]:.1f} predict+update/s "
+                               f"(B={EKF_B}, {rates[name, lname][1]:.3f} ms a fleet step, best of "
+                               f"{EKF_REPS} runs of {EKF_STEPS} chained steps)")
+            require(all(bool(torch.isfinite(a).all()) for a in s), f"{name} {lname}: non-finite state")
+            if lname == "sqrt fleet":
+                P = cov(s)  # float32 on the card
+                norm = torch.linalg.matrix_norm(P.double(), ord=2)
+                asym = float(((P - P.mT).abs().amax(dim=(1, 2)) / norm).max())
+                lam = float((torch.linalg.eigvalsh(P.double()).amin(dim=1) / norm).min())
+                phase("ekf-fleet", f"{name} square-root fleet after {EKF_STEPS} steps: P = S S' "
+                                   f"max |P - P'| / |P| {asym:.3e}, smallest eigenvalue / |P| "
+                                   f"{lam:.3e} (bound -1e-6)")
+                require(asym <= 1e-6 and lam >= -1e-6, f"{name}: square-root P not symmetric PSD")
+        ekf_split(name, G, dyn, meas, Q, R, g0, noise[0])
+    ekf_linalg_timing(dev)
+    return rates
+
+
+def ekf_split(name, G, dyn, meas, Q, R, g0, noise):
+    """One fleet step of each fleet form, synchronised stage by stage
+    (medians of 5): measurement Jacobians, predict, update (which takes the
+    Jacobians itself)."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch import estimators as E
+    from smooth_feedback_tpu_torch.estimators.ekf import _fleet_meas_lin
+
+    z = torch.zeros(G.ndof, dtype=g0.dtype, device=g0.device)
+    forms = {
+        "fleet": (E.ekf_fleet_reset(G, g0), E.ekf_fleet_predict, E.ekf_fleet_update),
+        "sqrt fleet": (E.sqrt_ekf_fleet_reset(G, g0), E.sqrt_ekf_fleet_predict,
+                       E.sqrt_ekf_fleet_update),
+    }
+    for lname, (s, predict, update) in forms.items():
+        y = vmap(meas)(s.g) + noise
+        stages = {
+            "measurement Jacobians": lambda s: (_fleet_meas_lin(G, meas, s.g, y, None, z), s)[1],
+            "predict": lambda s: predict(G, dyn, s, Q, EKF_TAU),
+            "update": lambda s: update(G, meas, s, y, R),
+        }
+        times = {k: [] for k in stages}
+        for _ in range(5):
+            out = s
+            for k, fn in stages.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(out)
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        phase("ekf-fleet", f"{name} {lname}, one step, synchronised split (medians of 5): " + ", ".join(
+            f"{k} {float(np.median(v)):.3f} ms" for k, v in times.items()))
+
+
+def ekf_linalg_timing(dev):
+    """The fleet forms' batched library calls on (B, n, n) against the
+    unrolled lane helpers on (n, n, B) that the JAX package's layout uses,
+    at the fleets' shapes (n = m = 3, B = 4096, float32): the innovation
+    Cholesky and gain solve, and the square-root forms' QR (predict (3, 6),
+    update (6, 6))."""
+    from smooth_feedback_tpu_torch.estimators.ekf import _chol_solve, _qr_lower
+    from smooth_feedback_tpu_torch.utils import chol_lane, chol_solve_lane, qr_lower_lane
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    M = rnd(EKF_B, 3, 3)
+    S = M @ M.mT + torch.eye(3, device=dev)
+    rhs = rnd(EKF_B, 3, 3)
+    St, rhst = S.movedim(0, -1).contiguous(), rhs.movedim(0, -1).contiguous()
+    rows = {
+        "Cholesky + solve": (lambda: _chol_solve(S, rhs),
+                             lambda: chol_solve_lane(chol_lane(St), rhst).movedim(-1, 0)),
+    }
+    for r, c in ((3, 6), (6, 6)):
+        A = rnd(EKF_B, r, c)
+        At = A.movedim(0, -1).contiguous()
+        rows[f"QR lower ({r}, {c})"] = (lambda A=A: _qr_lower(A),
+                                        lambda At=At: qr_lower_lane(At).movedim(-1, 0))
+    for what, (lib, lane) in rows.items():
+        err = float((lib() - lane()).abs().max())
+        phase("ekf-fleet", f"{what} at B={EKF_B}: batched library calls {time_ms(lib, 20):.4f} ms, "
+                           f"unrolled lane helpers {time_ms(lane, 20):.4f} ms (means of back-to-back "
+                           f"calls), max |difference| {err:.3e}")
+        require(err <= 1e-4, f"{what}: library and lane helpers disagree")
+
+
+# ------------------------------- EKF -> MPC -> ASIF (output_feedback_vehicle.py)
+
+
+def output_feedback_path(dev, dtype=torch.float32, backend="cuda", K_mpc=30, K_asif=50, T=2.5):
+    """examples/output_feedback_vehicle.py:33-98 in torch: the SE(2) x R^3
+    vehicle, its landmark + velocity measurement, the sparse MPC (K = 30, tf
+    = 5) and the ASIF (K = 50, T = 2.5, alpha 1, relax_cost 100), both QPs
+    polish off on ``backend``, and the filter's Q and R."""
+    from smooth_feedback_tpu_torch.controllers import (
+        ASIFilterParams, ASIFtoQPParams, MPCParams, MPCWeights, make_asif_step, make_mpc_step,
+    )
+    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
+    from smooth_feedback_tpu_torch.qp import QPSolverParams
+
+    kw = dict(dtype=dtype, device=dev)
+    X, U = Bundle(SE2, Rn(3)), Rn(2)
+    landmarks = torch.tensor(OF_LANDMARKS, **kw)
+
+    def meas(x):
+        """Body-frame landmark positions and the measured body velocity."""
+        inv = SE2.inverse(x[:4])
+        Rt = torch.stack([torch.stack([inv[2], -inv[3]]), torch.stack([inv[3], inv[2]])])
+        return torch.cat([(landmarks @ Rt.T + inv[:2]).reshape(-1), x[4:]])
+
+    vdes = torch.tensor([1.0, 0.0, 0.4], **kw)
+    base = torch.tensor([2.5, 0.0, np.cos(np.pi / 2), np.sin(np.pi / 2)], **kw)
+    qp = QPSolverParams(polish=False, backend=backend)
+    mpc, mws = make_mpc_step(
+        X, U, vehicle_asif_f, lambda t: torch.cat([SE2.rplus(base, t * vdes), vdes]),
+        lambda t: torch.zeros(2, **kw), dxdes=lambda t: torch.cat([vdes, torch.zeros(3, **kw)]),
+        weights=MPCWeights(Q=torch.eye(6, **kw), Qtf=0.1 * torch.eye(6, **kw), R=torch.eye(2, **kw)),
+        params=MPCParams(K=K_mpc, tf=5.0, qp=qp),
+        cr=lambda x, u: u, crl=[-0.5, -0.5], cru=[0.5, 0.5], **kw,
+    )
+    fl = asif_filter(dev, dtype)
+    aprm = ASIFilterParams(T=T, asif=ASIFtoQPParams(K=K_asif, dt=0.05, alpha=1.0, relax_cost=100.0),
+                           qp=qp)
+    asif, aws = make_asif_step(X, U, vehicle_asif_f, fl["h"], fl["bu"], params=aprm, W_u=fl["W_u"],
+                               ulim=fl["ulim"], **kw)
+    Q = torch.diag(torch.tensor([1e-4, 1e-4, 1e-4, 1e-3, 1e-6, 1e-3], **kw))
+    return dict(X=X, U=U, f=vehicle_asif_f, meas=meas, h=fl["h"], fl=fl, mpc=mpc, mws=mws,
+                asif=asif, aws=aws, aprm=aprm, Q=Q, R=1e-3 * torch.eye(11, **kw), kw=kw)
+
+
+def output_feedback_start(p):
+    """The true state (identity), the estimate reset at (0.3, -0.3, 0.2) off
+    it with P = 0.5 I, and the measurement and process noise of ``steps``
+    steps (0.03 N(0, I11); 0.02 N(0, I6) on the velocity states), numpy
+    seed SEED."""
+    from smooth_feedback_tpu_torch.estimators import ekf_reset
+
+    X, kw = p["X"], p["kw"]
+    x0 = X.identity(**kw)
+    est0 = ekf_reset(X, X.rplus(x0, torch.tensor([0.3, -0.3, 0.2, 0.0, 0.0, 0.0], **kw)),
+                     0.5 * torch.eye(6, **kw))
+    return x0, est0
+
+
+def output_feedback_noise(steps, kw):
+    rng = np.random.default_rng(SEED)
+    nm = 0.03 * rng.standard_normal((steps, 11))
+    nw = 0.02 * rng.standard_normal((steps, 6))
+    nw[:, :3] = 0.0
+    return torch.as_tensor(nm, **kw), torch.as_tensor(nw, **kw)
+
+
+def output_feedback_step(p, i, x, est, mws, aws, nm, nw):
+    """Step ``i`` of the example's loop: measure the TRUE state, EKF update,
+    MPC on the estimate, ASIF on its input, the plant with process noise,
+    EKF predict through the applied input.  Returns ``(x, est, est_upd, m,
+    a)``, ``est_upd`` the estimate both controllers saw."""
+    from smooth_feedback_tpu_torch.estimators import ekf_predict, ekf_update
+
+    X, f, kw = p["X"], p["f"], p["kw"]
+    t = torch.tensor(OF_DT * i, **kw)
+    est_upd = ekf_update(X, p["meas"], est, p["meas"](x) + nm, p["R"])
+    m = p["mpc"](mws, t, est_upd.g)
+    a = p["asif"](aws, est_upd.g, m.u)
+    x = X.rplus(x, OF_DT * f(x, a.u) + np.sqrt(OF_DT) * nw)
+    est = ekf_predict(X, lambda t_, g: f(g, a.u), est_upd, p["Q"], OF_DT)
+    return x, est, est_upd, m, a
+
+
+def output_feedback_phase(p, dev):
+    """OF_STEPS steps of the example's loop with both QPs on the per-problem
+    kernel: the barrier on the TRUE state stays > 0, the estimation error
+    ends below its initial value, and admm_problem launches once per QP
+    solve.  Returns the launch counts and each step's inputs and results."""
+    from torch.func import vmap
+
+    X, h = p["X"], p["h"]
+    x, est = output_feedback_start(p)
+    err0 = float(torch.linalg.vector_norm(X.rminus(est.g, x)))
+    mws, aws = p["mws"], p["aws"]
+    nm, nw = output_feedback_noise(OF_STEPS, p["kw"])
+    kept, step_s, hs, errs, m_st, a_st = [], [], [], [], [], []
+    reset_counts()
+    for i in range(OF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x1, est1, est_upd, m, a = output_feedback_step(p, i, x, est, mws, aws, nm[i], nw[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        kept.append((i, x, est, mws, aws, est_upd, m, a))
+        x, est, mws, aws = x1, est1, m.warmstart, a.warmstart
+        hs.append(h(torch.tensor(OF_DT * i, **p["kw"]), x)[0])
+        errs.append(torch.linalg.vector_norm(X.rminus(est.g, x)))
+        m_st.append(int(m.status))
+        a_st.append(int(a.status))
+    counts = read_counts()
+    hmin, errs = float(torch.stack(hs).min()), [float(e) for e in errs]
+    med = float(np.median(step_s))
+    phase("output-feedback", f"{OF_STEPS} steps (the example runs 800), float32: launches {counts}, "
+                             f"MPC statuses {dict((s, m_st.count(s)) for s in set(m_st))}, ASIF "
+                             f"statuses {dict((s, a_st.count(s)) for s in set(a_st))}, min barrier on "
+                             f"the TRUE state {hmin:+.6f}, estimation error at reset {err0:.4f}, after "
+                             f"step 1 {errs[0]:.4f}, final {errs[-1]:.4f}, median step "
+                             f"{med * 1e3:.3f} ms (min {min(step_s) * 1e3:.3f}, max "
+                             f"{max(step_s) * 1e3:.3f}), x final "
+                             f"{[round(float(v), 4) for v in x[:2]]}")
+    require(counts["admm_problem"] == 2 * OF_STEPS and counts["admm_shared"] == 0,
+            f"output-feedback launches {counts}, expected {2 * OF_STEPS} admm_problem (one per QP)")
+    require(hmin > 0.0, f"safety violated under output feedback: min barrier {hmin}")
+    require(errs[-1] < err0, f"the EKF did not reduce the estimation error ({err0} -> {errs[-1]})")
+    require(all(s in (0, 4) for s in m_st + a_st), "a QP returned neither Optimal nor MaxIterations")
+    require(bool(torch.isfinite(x).all()) and bool(torch.isfinite(est.P).all()), "non-finite state")
+    return counts, kept
+
+
+def output_feedback_split(p, kept):
+    """One step at the last kept inputs, synchronised stage by stage, five
+    times over: EKF (update and predict), MPC, ASIF transcription, ASIF
+    solve, plant; medians."""
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp
+    from smooth_feedback_tpu_torch.estimators import ekf_predict, ekf_update
+    from smooth_feedback_tpu_torch.qp import QPSolution, QuadraticProgram, solve_qp_batch
+
+    X, U, f, fl, aprm, kw = p["X"], p["U"], p["f"], p["fl"], p["aprm"], p["kw"]
+    i, x, est, mws, aws, _, m, a = kept[-1]
+    t = torch.tensor(OF_DT * i, **kw)
+    y = p["meas"](x)
+    stages = {
+        "EKF": lambda: ekf_predict(X, lambda t_, g: f(g, a.u),
+                                   ekf_update(X, p["meas"], est, y, p["R"]), p["Q"], OF_DT),
+        "MPC": lambda: p["mpc"](mws, t, est.g),
+        "ASIF transcription": lambda: asif_to_qp(X, U, aprm.asif, aprm.T, est.g, m.u, fl["W_u"],
+                                                 fl["ulim"], f, fl["h"], fl["bu"]),
+        "ASIF solve": lambda: solve_qp_batch(QuadraticProgram(*(q[None] for q in aq)), aprm.qp,
+                                             QPSolution(*(w[None] for w in aws))),
+        "plant": lambda: X.rplus(x, OF_DT * f(x, a.u)),
+    }
+    aq = stages["ASIF transcription"]()
+    times = {k: [] for k in stages}
+    for _ in range(5):
+        for k, fn in stages.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    phase("output-feedback", "one step, synchronised split (medians of 5): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in med.items()))
+    return med
+
+
+def output_feedback_plain_phase(dev, kept):
+    """The first OF_PLAIN_STEPS steps again with both QPs on the torch
+    loop, each from the kernel run's state, estimate and warm starts: the
+    vehicle-asif-plain phase's bounds on u."""
+    p = output_feedback_path(dev, backend="torch")
+    nm, nw = output_feedback_noise(OF_STEPS, p["kw"])
+    worst_m = worst_a = 0.0
+    rows = []
+    for i, x, est, mws, aws, _, mk, ak in kept[:OF_PLAIN_STEPS]:
+        _, _, _, mp, ap = output_feedback_step(p, i, x, est, mws, aws, nm[i], nw[i])
+        require(int(mp.status) == int(mk.status) and int(ap.status) == int(ak.status),
+                f"step {i}: plain statuses {int(mp.status)}, {int(ap.status)} against kernel "
+                f"{int(mk.status)}, {int(ak.status)}")
+        du_m = float((mp.u - mk.u).abs().max())
+        du_a = float((ap.u - ak.u).abs().max())
+        it = [(int(mp.warmstart.iters), int(mk.warmstart.iters)),
+              (int(ap.warmstart.iters), int(ak.warmstart.iters))]
+        rows.append(f"step {i} iters MPC plain/kernel {it[0]} ASIF {it[1]} |du| MPC {du_m:.3e} "
+                    f"ASIF {du_a:.3e}")
+        if it[0][0] == it[0][1]:
+            require(du_m <= PRIMAL_TOL, f"step {i}: MPC u differs by {du_m:.3e}")
+            worst_m = max(worst_m, du_m)
+        if it[1][0] == it[1][1]:
+            require(du_a <= PRIMAL_TOL + ASIF_U_GAIN * du_m, f"step {i}: ASIF u differs by {du_a:.3e}")
+            worst_a = max(worst_a, du_a)
+    phase("output-feedback-plain", f"both QPs on the torch loop, first {OF_PLAIN_STEPS} steps on the "
+                                   f"kernel run's states and carries: statuses equal; " + "; ".join(rows)
+                                   + f" (bounds where iteration counts agree: MPC {PRIMAL_TOL:g}, "
+                                   f"ASIF {PRIMAL_TOL:g} + {ASIF_U_GAIN:g} x the step's |du_mpc|)")
+    return worst_m
+
+
+def output_feedback_kernel_phase(p, kept, dev):
+    """admm_problem at the output-feedback shapes against its plain version:
+    the MPC QPs and the ASIF QPs of the first OF_KERNEL_STEPS steps, batched
+    (each member its own block, so the batch changes no member's result),
+    20 fixed iterations and a warm-started solve each; then each at B = 1,
+    the path's own launch, timed.  Returns the worst error and the rows
+    ``{shape: (ms, plain_ms, bound_ms, bound_by)}``."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp
+    from smooth_feedback_tpu_torch.qp import (
+        QPSolution, QPSolutionStatus, QuadraticProgram, admm_iterate_cuda, admm_iterate_reference,
+        per_problem_kernel_args,
+    )
+
+    X, U, f, fl, aprm, kw = p["X"], p["U"], p["f"], p["fl"], p["aprm"], p["kw"]
+    MAX_ITER = int(QPSolutionStatus.MaxIterations)
+    first = kept[:OF_KERNEL_STEPS]
+    stack_ws = lambda wss: QPSolution(*(torch.stack(a) for a in zip(*wss)))
+    ts = torch.tensor([OF_DT * k[0] for k in first], **kw)
+    gs = torch.stack([k[5].g for k in first])
+    mq = vmap(p["mpc"].transcribe)(ts, gs)
+    aq = QuadraticProgram(*(torch.stack(a) for a in zip(*(
+        asif_to_qp(X, U, aprm.asif, aprm.T, k[5].g, k[6].u, fl["W_u"], fl["ulim"], f, fl["h"],
+                   fl["bu"]) for k in first))))
+    prm = aprm.qp
+    worst, rows = 0.0, {}
+    for what, qps, ws in (("MPC", mq, stack_ws([k[3] for k in first])),
+                          ("ASIF", aq, stack_ws([k[4] for k in first]))):
+        m, n = qps.A.shape[-2:]
+        cold = per_problem_kernel_args(qps, None, None, prm)
+        if what == "ASIF":
+            # an input that is already safe makes the cold start exact (it
+            # stops at the first check even with every tolerance 0): start
+            # the fixed iterations from a seeded random iterate
+            rng = np.random.default_rng(SEED)
+            cold = list(cold)
+            for j in (12, 13, 14):
+                cold[j] = torch.as_tensor(0.1 * rng.standard_normal(tuple(cold[j].shape)),
+                                          dtype=torch.float32, device=dev)
+        worst = max(worst, fixed_iteration_check(admm_iterate_cuda, tuple(cold), prm,
+                                                 f"output-feedback {what} ({n}, {m})"))
+        warm = per_problem_kernel_args(qps, None, ws, prm)
+        label = f"output-feedback {what} ({n}, {m}) x {len(first)} steps, warm"
+        k = admm_iterate_cuda(prm, *warm)
+        r = admm_iterate_reference(prm, *warm)
+        stuck = bool((k[3] == MAX_ITER).all() and (r[3] == MAX_ITER).all())
+        if stuck:
+            # every member runs to max_iter in both (the example's MPC does
+            # so in the JAX package too): the solve is a fixed-length run,
+            # compared by the fixed-iteration rule over its whole length
+            err = fixed_iteration_check(admm_iterate_cuda, warm, prm, label, iters=prm.max_iter)
+        else:
+            err, k = compare_with_plain(label, admm_iterate_cuda, prm, warm, qps)
+        worst = max(worst, err)
+        one = tuple(a[-1:].contiguous() if a.dim() and a.shape[0] == len(first) else a for a in warm)
+        k1 = admm_iterate_cuda(prm, *one)
+        require(all(torch.equal(a, b[-1:]) for a, b in zip(k1, k)),
+                f"output-feedback {what}: the B = 1 launch differs from the batched one")
+        # the plain version's 4000 MPC iterations take seconds: one timed call
+        rows[f"({n}, {m})"] = (time_ms(lambda: admm_iterate_cuda(prm, *one), 20),
+                               time_ms(lambda: admm_iterate_reference(prm, *one),
+                                       1 if stuck else 5),
+                               *bound(one, k1, prm))
+        r = rows[f"({n}, {m})"]
+        phase("kernel", f"output-feedback {what} at B=1, n={n}, m={m} (one block: one SM of 132), "
+                        f"warm: kernel {r[0]:.4f} ms, plain {r[1]:.4f} ms (means of back-to-back "
+                        f"calls), {int(k1[4][0])} iterations; bound {r[2]:.6f} ms ({r[3]})")
+    return worst, rows
+
+
+# -------------------------------------------------------- PID and splines
+
+
+def pid_spline_phase(dev):
+    """examples/pid_se2.py on the card (float32, 2000 steps at dt = 0.01):
+    the final tracking error below 0.05; and fit_spline / spline_eval on
+    SE(2) and SO(3) knots in float32 on the card against the CPU float64
+    port."""
+    from smooth_feedback_tpu_torch.controllers import PIDParams, pid_gains, pid_init, pid_step
+    from smooth_feedback_tpu_torch.groups import SE2, SO3
+    from smooth_feedback_tpu_torch.utils import fit_spline, spline_eval
+
+    kw = dict(dtype=torch.float32, device=dev)
+    twist = torch.tensor([0.4, 0.0, 0.3], **kw)
+    gains, prm = pid_gains(SE2, kp=2.0, kd=2.5, ki=0.2, **kw), PIDParams(windup_limit=1.0)
+    x, v, st = SE2.exp(torch.tensor([1.0, -0.5, 0.8], **kw)), torch.zeros(3, **kw), pid_init(SE2, **kw)
+    zeros, errs = torch.zeros(3, **kw), []
+    t0 = time.perf_counter()
+    for i in range(PID_STEPS):
+        t = torch.tensor(i * PID_DT, **kw)
+        u, st = pid_step(SE2, prm, gains, st, t, x, v, SE2.exp(t * twist), twist, zeros)
+        v = v + PID_DT * u
+        x = SE2.rplus(x, PID_DT * v)
+        errs.append(torch.linalg.vector_norm(SE2.rminus(x, SE2.exp((t + PID_DT) * twist))))
+    errs = torch.stack(errs).tolist()
+    phase("pid-spline", f"PID on SE(2), {PID_STEPS} steps at dt={PID_DT}: error {errs[0]:.4f} -> "
+                        f"{errs[-1]:.6f} (bound 0.05), {time.perf_counter() - t0:.3f} s")
+    require(errs[-1] < 0.05, f"PID final error {errs[-1]}")
+
+    # knots exp(0.5 N(0, I)) at uneven times; times inside, at knots, past the end
+    ts = [0.0, 0.7, 1.5, 2.0, 3.1]
+    times = [0.05, 0.3, 0.7, 1.2, 1.99, 2.6, 3.05, 3.5]
+    rng = np.random.default_rng(SEED)
+    for name, G in (("SE(2)", SE2), ("SO(3)", SO3)):
+        gs = torch.func.vmap(G.exp)(torch.as_tensor(0.5 * rng.standard_normal((len(ts), G.ndof))))
+        for c2 in (False, True):
+            sp, sp64 = fit_spline(G, ts, gs.to(**kw), c2=c2), fit_spline(G, ts, gs, c2=c2)
+            err = [0.0, 0.0, 0.0]
+            for t in times:
+                for j, (a, b) in enumerate(zip(spline_eval(G, sp, t), spline_eval(G, sp64, t))):
+                    err[j] = max(err[j], float((a.double().cpu() - b).abs().max()))
+            phase("pid-spline", f"{name} spline, c2={c2}: card f32 against the CPU f64 port at "
+                                f"{len(times)} times: max |dg| {err[0]:.3e}, |dv| {err[1]:.3e}, "
+                                f"|da| {err[2]:.3e} (bounds {SPLINE_TOL})")
+            require(all(e <= b for e, b in zip(err, SPLINE_TOL)), f"{name} spline differs")
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -1181,6 +1757,32 @@ def main():
                       f"{launches['admm_problem']} admm_problem in {FLEET_STEPS} steps; vehicle-asif "
                       f"{vcounts} in {ASIF_WARM + ASIF_STEPS} steps")
     entry_points_phase(dev)
+
+    # the state-estimation slice: no kernel on the EKF fleets; the
+    # output-feedback loop runs both its QPs through admm_problem
+    reset_counts()
+    ekf_fleet_phase(dev)
+    require(read_counts() == {"admm_shared": 0, "admm_problem": 0}, "an EKF fleet launched a kernel")
+    ofp = output_feedback_path(dev)
+    ofcounts, ofkept = output_feedback_phase(ofp, dev)
+    output_feedback_split(ofp, ofkept)
+    err = output_feedback_plain_phase(dev, ofkept)
+    worst_o, orows = output_feedback_kernel_phase(ofp, ofkept, dev)
+    rows["admm_problem"] = (max(rows["admm_problem"][0], err, worst_o), rows["admm_problem"][1])
+    pid_spline_phase(dev)
+    phase("launches", f"output-feedback {ofcounts} in {OF_STEPS} steps (2 QP solves a step)")
+
+    by_path = {
+        "admm_shared": {"condensed": launches["admm_shared"],
+                        "vehicle-asif": vcounts["admm_shared"]},
+        "admm_problem": {"per-member fleet": launches["admm_problem"],
+                         "output-feedback": ofcounts["admm_problem"]},
+    }
+    shapes = {
+        "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64"],
+        "admm_problem": [f"B={FLEET_B} n=163 m=99", f"B={ASIF_B} n=3 m=53"]
+                        + [f"B=1 (n, m)={k}" for k in orows],
+    }
     kernels = []
     for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():
         source, replaces = KERNELS[name]
@@ -1190,6 +1792,7 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call runs a whole ADMM solve
             "library_ms": None,
+            "launches_by_path": by_path[name], "shapes": shapes[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,10 +4,12 @@ Same public names and layout as the JAX package, one module per counterpart.
 It holds the QP types and solver (polish, compensated checks, adaptive rho)
 with two ADMM kernels hand-written in CUDA for Hopper (``csrc/admm_shared.cu``
 for batches sharing their factors, ``csrc/admm_problem.cu`` for per-problem
-factors), ``Rn``, ``SO2``, ``SE2`` and ``Bundle``, the collocation mesh, the
-QP transcription, the MPC (condensed and sparse fleet steps, the ``MPC``
-class) and the ASIF safety filter.  Importing the package builds nothing;
-the kernels are compiled at first use.
+factors), ``Rn``, ``SO2``, ``SO3``, ``SE2``, ``SE3`` and ``Bundle``, the
+collocation mesh, the QP transcription, the MPC (condensed and sparse fleet
+steps, the ``MPC`` class), the ASIF safety filter, the PID, Lie-group
+splines and the EKF (plain, iterated, square-root and fleet forms).
+Importing the package builds nothing; the kernels are compiled at first
+use.
 """
 
 from . import groups

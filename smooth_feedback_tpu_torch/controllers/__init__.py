@@ -1,5 +1,5 @@
 """Controllers (PyTorch port): the MPC step, its fleets on one clock and on
-per-member clocks, the MPC class, and the ASIF safety filter."""
+per-member clocks, the MPC class, the ASIF safety filter and the PID."""
 
 from .asif import (
     ASIFilter,
@@ -11,6 +11,7 @@ from .asif import (
     make_asif_step,
 )
 from .mpc import MPC, MPCParams, MPCStepResult, MPCWeights, default_weights, make_mpc_step
+from .pid import PID, PIDGains, PIDParams, PIDState, pid_gains, pid_init, pid_step
 
 __all__ = [
     "ASIFilter",
@@ -26,4 +27,11 @@ __all__ = [
     "MPCWeights",
     "default_weights",
     "make_mpc_step",
+    "PID",
+    "PIDGains",
+    "PIDParams",
+    "PIDState",
+    "pid_gains",
+    "pid_init",
+    "pid_step",
 ]

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .controllers.mpc import MPCWeights
+from .estimators.ekf import EKFFleetState, EKFState, SqrtEKFFleetState, SqrtEKFState
 from .qp.solver import QPFactors
 from .qp.types import QPSolution, QuadraticProgram
 from .utils.bounds import ManifoldBounds
@@ -59,3 +60,24 @@ def weights_from_numpy(weights, device="cuda", dtype=torch.float64) -> MPCWeight
 def bounds_from_numpy(bounds, device="cuda", dtype=torch.float64) -> ManifoldBounds:
     """``(A, c, l, u)`` arrays (a ManifoldBounds-like tuple) -> ManifoldBounds."""
     return ManifoldBounds(*(_t(a, device, dtype) for a in bounds))
+
+
+def ekf_state_from_numpy(state, device="cuda", dtype=torch.float64) -> EKFState:
+    """``(g, P)`` arrays -> EKFState (any leading batch axes)."""
+    return EKFState(*(_t(a, device, dtype) for a in state))
+
+
+def sqrt_ekf_state_from_numpy(state, device="cuda", dtype=torch.float64) -> SqrtEKFState:
+    """``(g, S)`` arrays -> SqrtEKFState."""
+    return SqrtEKFState(*(_t(a, device, dtype) for a in state))
+
+
+def ekf_fleet_state_from_numpy(state, device="cuda", dtype=torch.float64) -> EKFFleetState:
+    """``(g (B, nparams), Pt (ndof, ndof, B))`` arrays -> EKFFleetState, in
+    the JAX package's batch-trailing covariance layout."""
+    return EKFFleetState(*(_t(a, device, dtype) for a in state))
+
+
+def sqrt_ekf_fleet_state_from_numpy(state, device="cuda", dtype=torch.float64) -> SqrtEKFFleetState:
+    """``(g (B, nparams), St (ndof, ndof, B))`` arrays -> SqrtEKFFleetState."""
+    return SqrtEKFFleetState(*(_t(a, device, dtype) for a in state))

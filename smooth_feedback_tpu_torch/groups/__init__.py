@@ -1,6 +1,7 @@
 """Lie group core (PyTorch port)."""
 
 from .base import LieGroup, ad_generators, jacobian_wrt_group
-from .groups import SE2, SO2, Bundle, Rn
+from .groups import SE2, SE3, SO2, SO3, Bundle, Rn
 
-__all__ = ["LieGroup", "Rn", "SO2", "SE2", "Bundle", "ad_generators", "jacobian_wrt_group"]
+__all__ = ["LieGroup", "Rn", "SO2", "SO3", "SE2", "SE3", "Bundle", "ad_generators",
+           "jacobian_wrt_group"]

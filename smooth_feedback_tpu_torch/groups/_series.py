@@ -1,5 +1,6 @@
 """Taylor-guarded trigonometric coefficient functions (PyTorch port of
-``smooth_feedback_tpu/groups/_series.py``, the helpers SO(2) and SE(2) use).
+``smooth_feedback_tpu/groups/_series.py``, the helpers SO(2), SE(2), SO(3)
+and SE(3) use).
 
 The coefficient functions in the Lie-group exp/log/Jacobian closed forms
 (sin(x)/x and friends) are singular at 0 when written naively.  Each helper
@@ -82,6 +83,28 @@ def cos1c(x):
 
 
 @_on_1d
+def sin3c(x):
+    """(x - sin(x)) / x**3."""
+    small, safe = _guard(x)
+    x2 = x * x
+    series = (1.0 - x2 / 20.0 * (1.0 - x2 / 42.0 * (1.0 - x2 / 72.0))) / 6.0
+    return torch.where(small, series, (safe - torch.sin(safe)) / (safe * safe * safe))
+
+
+@_on_1d
+def jlinv2c(x):
+    """1/x**2 - (1 + cos(x)) / (2 x sin(x)), the quadratic coefficient of the
+    inverse SO(3) Jacobian."""
+    small, safe = _guard(x)
+    x2 = x * x
+    series = (1.0 + x2 / 60.0 * (1.0 + x2 / 42.0 * (1.0 + x2 / 40.0))) / 12.0
+    exact = 1.0 / (safe * safe) - (1.0 + torch.cos(safe)) / _safe_denom(
+        2.0 * safe * torch.sin(safe)
+    )
+    return torch.where(small, series, exact)
+
+
+@_on_1d
 def acos_over_sinc(x):
     """(x/2) cot(x/2) = sin(x) x / (2 (1 - cos x)), the A/(2B) of the planar
     log; series 1 - x^2/12 - ..."""
@@ -108,6 +131,22 @@ def _guard2(x2):
     small = x2 < _cut2(x2.dtype)
     safe = torch.sqrt(torch.where(small, torch.ones_like(x2), x2))
     return small, safe
+
+
+@_on_1d
+def sinc2(x2):
+    """sin(t)/t with t = sqrt(x2)."""
+    small, t = _guard2(x2)
+    series = 1.0 - x2 / 6.0 * (1.0 - x2 / 20.0 * (1.0 - x2 / 42.0))
+    return torch.where(small, series, torch.sin(t) / t)
+
+
+@_on_1d
+def cos2(x2):
+    """cos(t) with t = sqrt(x2)."""
+    small, t = _guard2(x2)
+    series = 1.0 - x2 / 2.0 * (1.0 - x2 / 12.0 * (1.0 - x2 / 30.0))
+    return torch.where(small, series, torch.cos(t))
 
 
 @_on_1d
@@ -142,10 +181,20 @@ def jlinv2c2(x2):
 # ``t*t``, never the raw ``x2``, so the unselected branch stays finite at 0.
 
 
-def _dguard2(x2):
-    small = x2 < (0.25 if _is_32bit(x2.dtype) else _DCUT2)
+def _dcut2(dtype):
+    return 0.25 if _is_32bit(dtype) else _DCUT2
+
+
+def _seam_guard(x2, cut):
+    """``(small, t, t*t)``: the series mask, the guarded root and its square
+    (== x2 on the exact branch, 1 on the series)."""
+    small = x2 < cut
     t = torch.sqrt(torch.where(small, torch.ones_like(x2), x2))
     return small, t, t * t
+
+
+def _dguard2(x2):
+    return _seam_guard(x2, _dcut2(x2.dtype))
 
 
 @_on_1d
@@ -181,3 +230,57 @@ def djlinv2c2(x2):
     )
     dc3_dt = -2.0 / (x2s * t) - du
     return torch.where(small, series, dc3_dt / (2.0 * t))
+
+
+# --- higher-order coefficients of the SE(3) Q-block -------------------------
+#
+# Barfoot's Q-block ("State Estimation for Robotics", eq. 7.86) uses sin3c2
+# and the two functions below; their exact branches cancel badly for small t,
+# so the seam sits at t = 0.5 in every dtype (five series terms hold ~1e-10
+# relative there).
+
+
+@_on_1d
+def cos4c2(x2):
+    """(1 - t^2/2 - cos(t)) / t^4 with t = sqrt(x2)  (= -1/24 + t^2/720 - ...)."""
+    small, t, x2s = _seam_guard(x2, 0.25)
+    series = (
+        -(1.0 - x2 / 30.0 * (1.0 - x2 / 56.0 * (1.0 - x2 / 90.0 * (1.0 - x2 / 132.0))))
+        / 24.0
+    )
+    exact = (1.0 - 0.5 * x2s - torch.cos(t)) / (x2s * x2s)
+    return torch.where(small, series, exact)
+
+
+@_on_1d
+def sin5c2(x2):
+    """(t - sin(t) - t^3/6) / t^5 with t = sqrt(x2)  (= -1/120 + t^2/5040 - ...)."""
+    small, t, x2s = _seam_guard(x2, 0.25)
+    series = (
+        -(1.0 - x2 / 42.0 * (1.0 - x2 / 72.0 * (1.0 - x2 / 110.0 * (1.0 - x2 / 156.0))))
+        / 120.0
+    )
+    exact = (t - torch.sin(t) - t * x2s / 6.0) / (x2s * x2s * t)
+    return torch.where(small, series, exact)
+
+
+@_on_1d
+def dcos4c2(x2):
+    """d/ds [(1 - s/2 - cos t)/s^2], s = t^2 = x2."""
+    small, t, x2s = _seam_guard(x2, 0.25)
+    series = (1.0 - x2 / 28.0 * (1.0 - x2 / 60.0 * (1.0 - x2 / 99.0))) / 720.0
+    exact = (-0.5 + torch.sin(t) / (2.0 * t)) / (x2s * x2s) - 2.0 * (
+        1.0 - 0.5 * x2s - torch.cos(t)
+    ) / (x2s * x2s * x2s)
+    return torch.where(small, series, exact)
+
+
+@_on_1d
+def dsin5c2(x2):
+    """d/ds [(t - sin t - t^3/6)/(s^2 t)], s = t^2 = x2."""
+    small, t, x2s = _seam_guard(x2, 0.25)
+    series = (1.0 - x2 / 36.0 * (1.0 - 3.0 * x2 / 220.0 * (1.0 - x2 / 117.0))) / 5040.0
+    exact = (1.0 - torch.cos(t) - 0.5 * x2s) / (2.0 * x2s * x2s * x2s) - 2.5 * (
+        t - torch.sin(t) - t * x2s / 6.0
+    ) / (x2s * x2s * x2s * t)
+    return torch.where(small, series, exact)

@@ -86,6 +86,21 @@ class LieGroup:
         z = torch.zeros_like(v)
         return jacfwd(lambda w: self.log(self.compose(self.exp(v), self.exp(w))))(z)
 
+    def dl_exp(self, v):
+        """Left Jacobian: ``dl_exp(v) = Ad(exp(v)) dr_exp(v)``."""
+        return self.Ad(self.exp(v)) @ self.dr_exp(v)
+
+    def dl_expinv(self, v):
+        """Inverse left Jacobian."""
+        return self.dr_expinv(v) @ self.Ad(self.inverse(self.exp(v)))
+
+    # ---------------------------------------------------------------- helpers
+    def random(self, generator: torch.Generator, scale: float = 1.0, dtype=None):
+        """Random element ``exp(scale * n)``, ``n ~ N(0, I)`` drawn from
+        ``generator``, on the generator's device."""
+        n = torch.randn((self.ndof,), generator=generator, dtype=dtype, device=generator.device)
+        return self.exp(scale * n)
+
     def normalize(self, g):
         """Project parameters back onto the group manifold (e.g. unit norm)."""
         return g

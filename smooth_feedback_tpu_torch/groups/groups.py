@@ -1,4 +1,5 @@
-"""Concrete Lie groups (PyTorch port): ``Rn``, ``SO2`` and ``SE2``.
+"""Concrete Lie groups (PyTorch port): ``Rn``, ``SO2``, ``SO3``, ``SE2``,
+``SE3`` and ``Bundle``.
 
 Storage and tangent layouts follow ``smooth_feedback_tpu/groups/groups.py``:
 
@@ -7,16 +8,19 @@ Group    nparams     ndof  storage
 =======  ==========  ====  =====================================
 Rn(n)    n           n     the vector itself
 SO2      2           1     unit complex ``[re, im]``
+SO3      4           3     unit quaternion ``[x, y, z, w]``
 SE2      4           3     ``[tx, ty, re, im]``; tangent ``[vx, vy, w]``
+SE3      7           6     ``[tx, ty, tz, qx, qy, qz, qw]``; tangent ``[v, w]``
 Bundle   sum         sum   the parts' storages concatenated
 =======  ==========  ====  =====================================
 
 Closed forms are given for the hot operations; the rest inherits the
 ``torch.func.jacfwd`` fallbacks of :class:`~.base.LieGroup`.  Every operation
 is written with ``torch.stack``/``torch.cat`` on the element's entries and no
-Python branch on values, so it runs under ``torch.func.vmap``.  SO3, SE3
-and the second-order forms (``d2r_exp``/``d2r_expinv``) follow in later
-slices of the port.
+Python branch on values, so it runs under ``torch.func.vmap``.  SO3 and SE3
+work on 1-d slices of the element (``q[3:]``, never ``q[3]``) wherever a
+Python scalar enters, for the forward-mode fault ``_series`` describes.  The
+second-order forms (``d2r_exp``/``d2r_expinv``) follow with the NLP slice.
 """
 
 from __future__ import annotations
@@ -70,8 +74,8 @@ class Rn(LieGroup):
 
 
 def _mat(rows):
-    """A matrix from rows of 0-d tensors."""
-    return torch.stack([torch.stack(r) for r in rows])
+    """A matrix from rows of 0-d or 1-element tensors."""
+    return torch.stack([torch.stack(r) for r in rows]).reshape(len(rows), -1)
 
 
 class _SO2(LieGroup):
@@ -118,6 +122,108 @@ class _SO2(LieGroup):
 
     def is_commutative(self):
         return True
+
+
+def _sq(v):
+    """``v @ v`` as a 1-element tensor."""
+    return (v * v).sum(dim=0, keepdim=True)
+
+
+def _hat3(w):
+    """3x3 skew matrix of a 3-vector."""
+    x, y, z = w[0:1], w[1:2], w[2:3]
+    o = torch.zeros_like(x)
+    return _mat([[o, -z, y], [z, o, -x], [-y, x, o]])
+
+
+def _so3_generators(dtype=None, device=None):
+    """(3, 3, 3) stack with G[k] = d hat(v)/d v_k (the so(3) basis)."""
+    return torch.stack([_hat3(e) for e in torch.eye(3, dtype=dtype, device=device)])
+
+
+def _quat_mul(a, b):
+    """Hamilton product; storage [x, y, z, w]."""
+    ax, ay, az, aw = a[0:1], a[1:2], a[2:3], a[3:4]
+    bx, by, bz, bw = b[0:1], b[1:2], b[2:3], b[3:4]
+    return torch.cat([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ])
+
+
+def _quat_rotmat(q):
+    x, y, z, w = q[0:1], q[1:2], q[2:3], q[3:4]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return _mat([
+        [1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
+        [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
+        [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
+    ])
+
+
+class _SO3(LieGroup):
+    """3-D rotations, stored as a unit quaternion ``[x, y, z, w]``."""
+
+    nparams = 4
+    ndof = 3
+
+    def identity(self, dtype=None, device=None):
+        return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+    def exp(self, v):
+        th2 = _sq(v)
+        xyz = 0.5 * se.sinc2(0.25 * th2) * v  # sin(th/2)/th * v
+        return torch.cat([xyz, se.cos2(0.25 * th2)])
+
+    def log(self, q):
+        # principal log: flip the sign so that the scalar part is nonnegative
+        neg = q[3:] < 0
+        xyz = torch.where(neg, -q[:3], q[:3])
+        w = torch.where(neg, -q[3:], q[3:])
+        n2 = _sq(xyz)
+        small = n2 < 1e-12
+        n = torch.sqrt(torch.where(small, torch.ones_like(n2), n2))
+        # th/n with th = 2 atan2(n, w); for small n, th/n ~ (2/w)(1 - n^2/(3w^2))
+        scale_exact = 2.0 * torch.atan2(n, w) / n
+        scale_small = 2.0 / torch.clamp(w, min=1e-12) * (1.0 - n2 / (3.0 * w * w))
+        return torch.where(small, scale_small, scale_exact) * xyz
+
+    def compose(self, a, b):
+        return _quat_mul(a, b)
+
+    def inverse(self, q):
+        return torch.cat([-q[:3], q[3:]])
+
+    def Ad(self, q):
+        return _quat_rotmat(q)
+
+    def ad(self, v):
+        return _hat3(v)
+
+    def dr_exp(self, v):
+        th2 = _sq(v)
+        H = _hat3(v)
+        eye = torch.eye(3, dtype=v.dtype, device=v.device)
+        return eye - se.cos1c2(th2) * H + se.sin3c2(th2) * (H @ H)
+
+    def dr_expinv(self, v):
+        th2 = _sq(v)
+        H = _hat3(v)
+        eye = torch.eye(3, dtype=v.dtype, device=v.device)
+        return eye + 0.5 * H + se.jlinv2c2(th2) * (H @ H)
+
+    def normalize(self, q):
+        return q / torch.linalg.vector_norm(q)
+
+    def matrix(self, q):
+        return _quat_rotmat(q)
+
+    def hat(self, v):
+        return _hat3(v)
 
 
 class _SE2(LieGroup):
@@ -193,6 +299,100 @@ class _SE2(LieGroup):
         return _mat([[g[2], -g[3], g[0]], [g[3], g[2], g[1]], [z, z, o]])
 
 
+class _SE3(LieGroup):
+    """Rigid motions in 3-D; storage ``[t(3), q(4)]``, tangent ``[v(3), w(3)]``."""
+
+    nparams = 7
+    ndof = 6
+
+    def identity(self, dtype=None, device=None):
+        return torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+    def exp(self, x):
+        v, w = x[:3], x[3:]
+        th2 = _sq(w)
+        H = _hat3(w)
+        # left Jacobian of SO(3)
+        eye = torch.eye(3, dtype=x.dtype, device=x.device)
+        Jl = eye + se.cos1c2(th2) * H + se.sin3c2(th2) * (H @ H)
+        return torch.cat([Jl @ v, SO3.exp(w)])
+
+    def log(self, g):
+        t, q = g[:3], g[3:]
+        w = SO3.log(q)
+        th2 = _sq(w)
+        H = _hat3(w)
+        eye = torch.eye(3, dtype=g.dtype, device=g.device)
+        Jlinv = eye - 0.5 * H + se.jlinv2c2(th2) * (H @ H)
+        return torch.cat([Jlinv @ t, w])
+
+    def compose(self, a, b):
+        t = a[:3] + _quat_rotmat(a[3:]) @ b[:3]
+        return torch.cat([t, _quat_mul(a[3:], b[3:])])
+
+    def inverse(self, g):
+        qi = SO3.inverse(g[3:])
+        return torch.cat([-(_quat_rotmat(qi) @ g[:3]), qi])
+
+    @staticmethod
+    def _blocks(a, b, c):
+        """The 6x6 matrix [[a, b], [0, c]] of 3x3 blocks."""
+        z = torch.zeros_like(a)
+        return torch.cat([torch.cat([a, b], dim=1), torch.cat([z, c], dim=1)])
+
+    def Ad(self, g):
+        R = _quat_rotmat(g[3:])
+        return self._blocks(R, _hat3(g[:3]) @ R, R)
+
+    def ad(self, x):
+        hw = _hat3(x[3:])
+        return self._blocks(hw, _hat3(x[:3]), hw)
+
+    # Closed-form right Jacobians via the Q-block form [Barfoot, "State
+    # Estimation for Robotics", eq. 7.86]:
+    #   dl_exp(v, w)  = [[Jl3(w), Q(v, w)], [0, Jl3(w)]]
+    #   dr_exp(x)     = dl_exp(-x)
+    #   dr_expinv(x)  = [[Ji, -Ji Q(-v,-w) Ji], [0, Ji]],  Ji = SO3.dr_expinv(w)
+    @staticmethod
+    def _Q(rho, phi):
+        """Barfoot's Q: the translation-rotation coupling block of dl_exp."""
+        th2 = _sq(phi)
+        rh = _hat3(rho)
+        ph = _hat3(phi)
+        pr = ph @ rh
+        rp = rh @ ph
+        prp = pr @ ph
+        pp = ph @ ph
+        m1 = se.sin3c2(th2)  # (t - sin t)/t^3
+        m2 = se.cos4c2(th2)  # (1 - t^2/2 - cos t)/t^4  (negative near 0)
+        m3 = se.sin5c2(th2)  # (t - sin t - t^3/6)/t^5  (negative near 0)
+        return (
+            0.5 * rh
+            + m1 * (pr + rp + prp)
+            - m2 * (pp @ rh + rh @ pp - 3.0 * prp)
+            - 0.5 * (m2 - 3.0 * m3) * (prp @ ph + ph @ prp)
+        )
+
+    def dr_exp(self, x):
+        v, w = -x[:3], -x[3:]
+        Jl = SO3.dr_exp(-w)  # = dl_exp of SO(3) at w
+        return self._blocks(Jl, self._Q(v, w), Jl)
+
+    def dr_expinv(self, x):
+        Ji = SO3.dr_expinv(x[3:])  # = Jl3(w)^{-1} since Jr(w) = Jl(-w)
+        Q = self._Q(-x[:3], -x[3:])
+        return self._blocks(Ji, -(Ji @ Q @ Ji), Ji)
+
+    def normalize(self, g):
+        return torch.cat([g[:3], g[3:] / torch.linalg.vector_norm(g[3:])])
+
+    def matrix(self, g):
+        top = torch.cat([_quat_rotmat(g[3:]), g[:3, None]], dim=1)
+        bot = torch.zeros((1, 4), dtype=g.dtype, device=g.device)
+        bot[0, 3] = 1.0
+        return torch.cat([top, bot])
+
+
 class Bundle(LieGroup):
     """Direct product of Lie groups; storage is the concatenated parts (the
     SE(2) x R^3 vehicle state of benchmarks/asif_bench.py, for one)."""
@@ -266,4 +466,6 @@ class Bundle(LieGroup):
 
 
 SO2 = _SO2()
+SO3 = _SO3()
 SE2 = _SE2()
+SE3 = _SE3()

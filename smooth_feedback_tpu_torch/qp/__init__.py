@@ -5,9 +5,11 @@ from .solver import (
     QPFactors,
     per_problem_kernel_args,
     qp_factorize,
+    qp_phase_timings,
     shared_kernel_args,
     solve_qp,
     solve_qp_batch,
+    solve_qp_timed,
 )
 from .types import (
     QPSolution,
@@ -26,6 +28,8 @@ __all__ = [
     "qp_factorize",
     "solve_qp",
     "solve_qp_batch",
+    "solve_qp_timed",
+    "qp_phase_timings",
     "shared_kernel_args",
     "per_problem_kernel_args",
     "warmstart_like",

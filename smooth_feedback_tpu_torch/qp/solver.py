@@ -15,7 +15,9 @@ Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs a kernel of
 per-problem kernel against per-problem factors or none (then every member is
 scaled and factorized here first, in torch).
 
-Options, as in the JAX package: ``polish`` (the masked active-set polish,
+Options, as in the JAX package: ``verbose`` (a host line at each stopping
+check of the torch loop; the kernels run their loop on the card and print
+nothing), ``polish`` (the masked active-set polish,
 Cholesky of the Schur complement in float64, LU of the quasi-definite
 (n+m) system in float32, with compensated refinement), ``compensated_check``
 (error-free residuals in the stopping check and a certificate of the
@@ -29,6 +31,8 @@ Pallas kernels do; polish and the certificate run after them.
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -71,8 +75,6 @@ def _not_ported(option: str, where: str):
 
 
 def _check_params(prm: QPSolverParams):
-    if prm.verbose:
-        _not_ported("verbose", "ROADMAP Queue 1 item 10")
     if prm.backend == "lane":
         _not_ported("backend='lane'", "ROADMAP Queue 1 item 11")
     if prm.backend not in ("torch", "cuda"):
@@ -419,6 +421,18 @@ def _finalize_solution(prm, P, q, A, l, u, c, sx, sy, x, y, status, iters, pres,
     )
 
 
+def _print_check(it, status, pres, dres):
+    """``verbose``: one host line a stopping check, the JAX package's fields
+    (members still running; median and largest residuals)."""
+    med = lambda r: float(torch.quantile(r.double(), 0.5))
+    print(
+        f"[qp] iter {it}: running {int((status == _RUNNING).sum())}/{status.shape[0]}  "
+        f"pres med {med(pres):.3e} max {float(pres.max()):.3e}  "
+        f"dres med {med(dres):.3e} max {float(dres.max()):.3e}",
+        flush=True,
+    )
+
+
 def solve_qp_batch(
     qp: QuadraticProgram,
     prm: QPSolverParams = QPSolverParams(),
@@ -641,6 +655,8 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
                 sxB * xn, syB * yn / cB[:, None], zn / syB,
                 sxB * (xn - x_old), syB * (yn - y_old) / cB[:, None],
             )
+            if prm.verbose:
+                _print_check(it, new_status, pres_n, dres_n)
         else:
             new_status = torch.full((B,), _RUNNING, dtype=torch.int32, device=dev)
             pres_n, dres_n = pres, dres
@@ -685,7 +701,105 @@ def solve_qp(
     warmstart: Optional[QPSolution] = None,
 ) -> QPSolution:
     """Solve a single dense QP (unbatched convenience wrapper)."""
-    qp_b = QuadraticProgram(*(a[None] for a in qp))
-    ws_b = None if warmstart is None else QPSolution(*(a[None] for a in warmstart))
-    sol = solve_qp_batch(qp_b, prm, ws_b)
-    return QPSolution(*(a[0] for a in sol))
+    qp_b, ws_b = _batch_of_one(qp, warmstart)
+    return QPSolution(*(a[0] for a in solve_qp_batch(qp_b, prm, ws_b)))
+
+
+def _batch_of_one(qp, warmstart):
+    """A single QP and its warm start (or None) with a batch axis of 1."""
+    ws = None if warmstart is None else QPSolution(*(a[None] for a in warmstart))
+    return QuadraticProgram(*(a[None] for a in qp)), ws
+
+
+def solve_qp_timed(
+    qp: QuadraticProgram,
+    prm: QPSolverParams = QPSolverParams(),
+    warmstart: Optional[QPSolution] = None,
+    max_time: float = float("inf"),
+    chunk_iter: int = 200,
+) -> QPSolution:
+    """Solve with a host wall-clock budget: the batched solve runs in chunks
+    of ``chunk_iter`` ADMM iterations, each warm-started from the last, and
+    the clock is read between chunks.  Members still unconverged when the
+    budget runs out return ``MaxTime``; ``iters`` accumulates over the chunks
+    in which a member was still unconverged (a converged member re-enters
+    the next chunk as a warm start, and its few iterations there are not new
+    work).  Accepts a single or a batched ``qp``."""
+    batched = qp.P.dim() == 3
+    qp_b, ws = (qp, warmstart) if batched else _batch_of_one(qp, warmstart)
+    deadline = time.monotonic() + max_time
+    total = 0
+    iters_acc = None
+    unconverged_prev = None
+    while True:
+        this_chunk = min(chunk_iter, prm.max_iter - total)
+        sol = solve_qp_batch(qp_b, dataclasses.replace(prm, max_iter=this_chunk), ws)
+        if iters_acc is None:
+            iters_acc = sol.iters
+        else:
+            iters_acc = iters_acc + torch.where(unconverged_prev, sol.iters, 0).to(torch.int32)
+        total += this_chunk
+        unconverged = sol.status == _MAX_ITER
+        if not bool(unconverged.any()) or total >= prm.max_iter:
+            break
+        if time.monotonic() >= deadline:
+            status = torch.where(unconverged, int(QPSolutionStatus.MaxTime), sol.status)
+            sol = sol._replace(status=status.to(torch.int32))
+            break
+        ws = sol
+        unconverged_prev = unconverged
+    sol = sol._replace(iters=iters_acc)
+    return sol if batched else QPSolution(*(a[0] for a in sol))
+
+
+def qp_phase_timings(
+    qp: QuadraticProgram,
+    prm: QPSolverParams = QPSolverParams(),
+    warmstart: Optional[QPSolution] = None,
+    reps: int = 3,
+) -> dict:
+    """Wall-time breakdown of a (batched) QP solve, the counterpart of the
+    reference verbose mode's Factorization / Iteration / Polish table:
+    ``factor_ms`` (scaling and KKT factorization, ``qp_factorize``),
+    ``iterate_ms`` (the solve with polish off, minus ``factor_ms``),
+    ``polish_ms`` (the configured solve minus the one with polish off; 0.0
+    when ``prm.polish`` is off) and ``total_ms`` (the configured solve).
+    Each leg runs once to warm up, then ``reps`` times, each ended by a
+    device synchronise; the best counts.  A tuning utility, not for
+    production loops."""
+    qp_b, ws = (qp, warmstart) if qp.P.dim() == 3 else _batch_of_one(qp, warmstart)
+    _check_params(prm)
+    dev = qp_b.A.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def best(fn):
+        out = fn()
+        sync()
+        ms = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ms = min(ms, 1e3 * (time.perf_counter() - t0))
+        return ms, out
+
+    prm_np = dataclasses.replace(prm, polish=False)
+    with ieee_f32_matmul():
+        factor_ms, _ = best(lambda: qp_factorize(qp_b, prm))
+        nopolish_ms, sol = best(lambda: _solve_qp_batch_impl(qp_b, prm_np, ws, None))
+        if prm.polish:
+            total_ms, sol = best(lambda: _solve_qp_batch_impl(qp_b, prm, ws, None))
+            polish_ms = max(0.0, total_ms - nopolish_ms)
+        else:
+            total_ms, polish_ms = nopolish_ms, 0.0
+    return {
+        "factor_ms": round(factor_ms, 4),
+        "iterate_ms": round(max(0.0, nopolish_ms - factor_ms), 4),
+        "polish_ms": round(polish_ms, 4),
+        "total_ms": round(total_ms, 4),
+        "iters_mean": float(sol.iters.float().mean()),
+        "batch": int(qp_b.P.shape[0]),
+    }

@@ -92,6 +92,8 @@ class QPSolverParams:
     adaptive_rho: bool = False
     adaptive_rho_tol: float = 5.0
     compensated_check: bool = False
+    # a host line of residual summaries at every stopping check of the torch
+    # loop (the kernels print nothing)
     verbose: bool = False
 
 

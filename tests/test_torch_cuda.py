@@ -379,3 +379,86 @@ def test_solver_per_problem_route_goes_through_kernel(dev):
     torch.cuda.synchronize()
     assert torch.equal(k[3], sc.status) and torch.equal(k[4], sc.iters)
     torch.testing.assert_close(f.sx * k[0], sc.primal, rtol=0, atol=0)
+
+
+# ------------------------------------------ the state-estimation slice
+
+
+@pytest.mark.parametrize("name", ["SE(2)", "SO(3)"])
+def test_ekf_fleet_forms_on_card_match_cpu_f64(dev, name):
+    """benchmarks/ekf_bench.py's fleets on the card (B = 4096, float32): 3
+    chained predict + update steps of the fleet, the square-root fleet and
+    the vmap layout from the same states and noise stay within
+    chip_smoke.EKF_TOL of the CPU float64 port (g through rminus, and P)."""
+    from torch.func import vmap
+
+    from chip_smoke import EKF_B, EKF_TOL, ekf_diff, ekf_layouts, ekf_problem
+
+    lay = ekf_layouts(*ekf_problem(name, dev))
+    lay_c = ekf_layouts(*ekf_problem(name, "cpu", torch.float64))
+    G = ekf_problem(name, "cpu", torch.float64)[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g0 = vmap(G.exp)(0.2 * torch.randn((EKF_B, G.ndof), generator=gen, device=dev))
+    noise = 0.05 * torch.randn((3, EKF_B, G.ndof), generator=gen, device=dev)
+    for lname, (reset, step, cov) in lay.items():
+        reset_c, step_c, cov_c = lay_c[lname]
+        s, sc = reset(g0), reset_c(g0.double().cpu())
+        for k in range(3):
+            s, sc = step(s, noise[k]), step_c(sc, noise[k].double().cpu())
+        torch.cuda.synchronize()
+        card = type(s)(*(a.double().cpu() for a in s))
+        dg, dP = ekf_diff(G, card, sc, cov_c, cov_c)
+        assert dg <= EKF_TOL and dP <= EKF_TOL, (lname, dg, dP)
+
+
+def test_problem_kernel_at_output_feedback_shapes(dev):
+    """The per-problem kernel at the output-feedback loop's shapes, B = 1:
+    the MPC QP (sparse, K = 30, n = m = 262, streamed) and the ASIF QP
+    (n = 3, m = 53), transcribed on the card at the loop's start.  With
+    every tolerance 0, 20 iterations of kernel and plain version agree
+    within chip_smoke's fixed-iteration bound (ITER_TOL of each vector's
+    scale plus twice the f32 plain version's distance from an f64 run: the
+    MPC's dynamics rows are equalities at rho = 100, so y carries ~3e-3 of
+    f32 rounding after 20 iterations; the ASIF from a seeded random
+    iterate, since its cold start can be exact); with the loop's
+    settings both return the same status after the same count, and the
+    kernel launched once a solve."""
+    import dataclasses
+
+    from chip_smoke import ITER_TOL, OF_DT, output_feedback_path, output_feedback_start
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp
+    from smooth_feedback_tpu_torch.qp import QuadraticProgram
+
+    p = output_feedback_path(dev)
+    _, est = output_feedback_start(p)
+    mq = p["mpc"].transcribe(torch.tensor(OF_DT, device=dev), est.g)
+    aprm, fl = p["aprm"], p["fl"]
+    aq = asif_to_qp(p["X"], p["U"], aprm.asif, aprm.T, est.g,
+                    torch.tensor([0.3, -0.4], device=dev), fl["W_u"], fl["ulim"], p["f"],
+                    fl["h"], fl["bu"])
+    prm = aprm.qp
+    zero = dataclasses.replace(prm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                               eps_dual_inf=0.0, max_iter=20)
+    for (n, m), qp in (((262, 262), mq), ((3, 53), aq)):
+        qps = QuadraticProgram(*(a[None] for a in qp))
+        assert tuple(qps.A.shape[1:]) == (m, n)
+        args = list(per_problem_kernel_args(qps, None, None, prm))
+        admm_iterate_cuda.launches = 0
+        k, r = admm_iterate_cuda(prm, *args), admm_iterate_reference(prm, *args)
+        torch.cuda.synchronize()
+        assert admm_iterate_cuda.launches == 1
+        assert torch.equal(k[3], r[3]) and torch.equal(k[4], r[4])
+        if n == 3:
+            rng = np.random.default_rng(0)
+            for i in (12, 13, 14):
+                args[i] = torch.as_tensor(0.1 * rng.standard_normal(tuple(args[i].shape)),
+                                          dtype=torch.float32, device=dev)
+        k, r = admm_iterate_cuda(zero, *args), admm_iterate_reference(zero, *args)
+        d = admm_iterate_reference(zero, *(a.double() if a.is_floating_point() else a
+                                           for a in args))
+        torch.cuda.synchronize()
+        assert int(k[4][0]) == int(r[4][0]) == 20
+        for kt, rt, dt in zip(k[:3], r[:3], d[:3]):
+            floor = float((rt.double() - dt).abs().max())
+            scale = max(1.0, float(dt.abs().max()))
+            assert float((kt - rt).abs().max()) <= ITER_TOL * scale + 2 * floor

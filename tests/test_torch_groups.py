@@ -1,8 +1,9 @@
 """The PyTorch port's Lie-group core against the JAX package, on the CPU.
 
-The port holds ``Rn`` only, so its ``torch.func.jacfwd`` fallbacks for the
-adjoints and right Jacobians are checked on a test-local SE(2) that defines
-only exp/log/compose/inverse, against the JAX package's closed forms.
+The ``torch.func.jacfwd`` fallbacks for the adjoints and right Jacobians
+are checked on a test-local SE(2) that defines only exp/log/compose/inverse,
+against the JAX package's closed forms; then every concrete group's closed
+forms against the JAX package's.
 """
 
 import jax.numpy as jnp
@@ -109,7 +110,9 @@ def _close(got, ref, tol=1e-12, msg=""):
 
 
 @pytest.mark.parametrize("name", ["sinc", "cos1c", "acos_over_sinc", "cos1c2", "sin3c2",
-                                  "jlinv2c2", "dcos1c2", "dsin3c2", "djlinv2c2"])
+                                  "jlinv2c2", "dcos1c2", "dsin3c2", "djlinv2c2", "sin3c",
+                                  "jlinv2c", "sinc2", "cos2", "cos4c2", "sin5c2", "dcos4c2",
+                                  "dsin5c2"])
 def test_series_helpers_match_jax(name):
     """Each series helper equals the JAX package's within 1e-12 (f64) at
     angles on both sides of the seams, and its derivative by forward-mode
@@ -121,7 +124,7 @@ def test_series_helpers_match_jax(name):
 
     tf_, jf = getattr(tse, name), getattr(jse, name)
     squared = name.endswith("2")
-    for a in ANGLES:
+    for a in ANGLES + ([0.45, 0.55] if squared else []):  # the t = 0.5 seam of the SE(3) helpers
         x = a * a if squared else a
         tx = torch.tensor(x, dtype=torch.float64)
         _close(tf_(tx), jf(jnp.asarray(x)), msg=f"{name}({x})")
@@ -186,3 +189,98 @@ def test_se2_runs_under_vmap_and_jacfwd_in_f32():
     ))(ts)
     assert J.dtype == torch.float32 and J.shape == (5, 3)
     torch.testing.assert_close(J, torch.zeros_like(J))
+
+
+# ---------------------------------------------------------- SO(3), SE(3)
+
+from smooth_feedback_tpu.groups import SE3 as JSE3  # noqa: E402
+from smooth_feedback_tpu.groups import SO3 as JSO3  # noqa: E402
+from smooth_feedback_tpu_torch.groups import SE3, SO3  # noqa: E402
+
+
+def _rotation_cases(rng, G):
+    """Tangents (v, w) whose rotation part is random, zero, 1e-9, near the
+    f64 series seam (1e-2), of angle near pi, and of angle past pi (the log
+    must return the principal branch)."""
+    def with_angle(theta):
+        v = rng.standard_normal(G.ndof)
+        r = rng.standard_normal(3)
+        v[-3:] = theta * r / np.linalg.norm(r)
+        return v
+
+    return [(with_angle(th), rng.standard_normal(G.ndof))
+            for th in (1.1, 0.0, 1e-9, 9e-3, 0.011, np.pi - 1e-6, np.pi + 0.3)]
+
+
+@pytest.mark.parametrize("name", ["SO3", "SE3"])
+def test_so3_se3_match_jax(name):
+    """SO3 and SE3 exp, log, compose, inverse, rplus, rminus, lplus, lminus,
+    Ad, ad, dr_exp, dr_expinv, dl_exp, dl_expinv, normalize, matrix, hat
+    and the so(3) generators (SO3) and jacfwd of rminus equal the JAX
+    package's within 1e-12 (f64)
+    at random, zero, tiny and near-pi angles and past pi; the closed forms
+    equal the LieGroup jacfwd fallbacks within 1e-9 at a random tangent;
+    identity and random() give elements of the group."""
+    import jax
+
+    G, J = (SO3, JSO3) if name == "SO3" else (SE3, JSE3)
+    rng = np.random.default_rng(7)
+    for k, (v, w) in enumerate(_rotation_cases(rng, G)):
+        tv, tw = torch.as_tensor(v), torch.as_tensor(w)
+        jv, jw = jnp.asarray(v), jnp.asarray(w)
+        g, h = G.exp(tv), G.exp(tw)
+        jg, jh = J.exp(jv), J.exp(jw)
+        pairs = [
+            ("exp", g, jg), ("log", G.log(g), J.log(jg)),
+            ("compose", G.compose(g, h), J.compose(jg, jh)),
+            ("inverse", G.inverse(g), J.inverse(jg)),
+            ("rplus", G.rplus(g, tw), J.rplus(jg, jw)),
+            ("rminus", G.rminus(g, h), J.rminus(jg, jh)),
+            ("lplus", G.lplus(g, tw), J.lplus(jg, jw)),
+            ("lminus", G.lminus(g, h), J.lminus(jg, jh)),
+            ("Ad", G.Ad(g), J.Ad(jg)), ("ad", G.ad(tv), J.ad(jv)),
+            ("dr_exp", G.dr_exp(tv), J.dr_exp(jv)),
+            ("dr_expinv", G.dr_expinv(tv), J.dr_expinv(jv)),
+            ("dl_exp", G.dl_exp(tv), J.dl_exp(jv)),
+            ("dl_expinv", G.dl_expinv(tv), J.dl_expinv(jv)),
+            ("normalize", G.normalize(1.01 * g), J.normalize(1.01 * jg)),
+            ("matrix", G.matrix(g), J.matrix(jg)),
+            ("d rminus", torch.func.jacfwd(lambda a: G.rminus(G.rplus(g, a), h))(tv * 0),
+             jax.jacfwd(lambda a: J.rminus(J.rplus(jg, a), jh))(jv * 0)),
+        ]
+        if name == "SO3":
+            pairs.append(("hat", G.hat(tv), J.hat(jv)))
+        # the log of a rotation past pi is the principal one
+        pairs.append(("log o exp", G.log(G.exp(tv)), J.log(J.exp(jv))))
+        for what, got, ref in pairs:
+            _close(got, ref, msg=f"{name} case {k} {what}")
+    v = torch.as_tensor(rng.standard_normal(G.ndof))
+    for what in ("Ad", "ad", "dr_exp", "dr_expinv"):
+        arg = G.exp(v) if what == "Ad" else v
+        _close(getattr(G, what)(arg), getattr(LieGroup, what)(G, arg).numpy(), tol=1e-9, msg=what)
+    _close(G.identity(dtype=torch.float64), J.identity(jnp.float64), tol=0)
+    if name == "SO3":
+        from smooth_feedback_tpu.groups.groups import _so3_generators as jgen
+        from smooth_feedback_tpu_torch.groups.groups import _so3_generators as tgen
+
+        _close(tgen(torch.float64), jgen(jnp.float64), tol=0)
+    gen = torch.Generator().manual_seed(0)
+    r = G.random(gen, 0.2, dtype=torch.float64)
+    assert r.shape == (G.nparams,) and abs(float(torch.linalg.vector_norm(r[-4:])) - 1) < 1e-12
+    assert not G.is_commutative()
+
+
+def test_so3_se3_run_under_vmap_and_jacfwd_in_f32():
+    """SO3 and SE3 under vmap of jacfwd in float32 keep float32 throughout
+    (1-d slices where a Python scalar enters, as _series explains)."""
+    ts = torch.linspace(0.0, 3.0, 5)
+    for G in (SO3, SE3):
+        twist = 0.1 * torch.arange(1.0, G.ndof + 1)
+        J = torch.func.vmap(torch.func.jacfwd(
+            lambda t: G.rminus(G.exp((t + 0.1) * twist), G.exp(t * twist))
+        ))(ts)
+        assert J.dtype == torch.float32 and J.shape == (5, G.ndof)
+        torch.testing.assert_close(J, torch.zeros_like(J), rtol=0, atol=1e-6)
+        Jw = torch.func.vmap(torch.func.jacfwd(lambda w: G.log(G.rplus(G.exp(twist), w))))(
+            torch.zeros(5, G.ndof))
+        assert Jw.dtype == torch.float32

@@ -26,7 +26,8 @@ def test_port_imports_without_jax():
     builds nothing."""
     mods = list(_modules())
     for m in ("qp.cuda_kernel", "groups._series", "groups.groups", "controllers.mpc",
-              "controllers.asif", "utils.compensated", "utils.bounds", "utils.linalg"):
+              "controllers.asif", "controllers.pid", "estimators", "estimators.ekf",
+              "utils.compensated", "utils.bounds", "utils.linalg", "utils.spline"):
         assert f"smooth_feedback_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -149,8 +149,8 @@ def test_warmstart_like_matches_jax():
 
 def test_solve_qp_single_and_unported_options():
     """The unbatched wrapper solves a box QP, with and without polish (the
-    default, which lands on the exact solution); the options still unported
-    (backend="lane", verbose) raise NotImplementedError."""
+    default, which lands on the exact solution), also with verbose on; the
+    option still unported (backend="lane") raises NotImplementedError."""
     qp = qp_from_numpy((np.eye(2), [-4.0, 0.25], np.eye(2), [-1.0, -1.0], [1.0, 1.0]))
     sol = solve_qp(qp, QPSolverParams(polish=False))
     assert int(sol.status) == QPSolutionStatus.Optimal
@@ -158,9 +158,11 @@ def test_solve_qp_single_and_unported_options():
     sol = solve_qp(qp)
     assert int(sol.status) == QPSolutionStatus.Optimal
     np.testing.assert_allclose(sol.primal.numpy(), [1.0, -0.25], atol=1e-12)
-    for kw in (dict(polish=False, backend="lane"), dict(polish=False, verbose=True)):
-        with pytest.raises(NotImplementedError):
-            solve_qp(qp, QPSolverParams(**kw))
+    loud = solve_qp(qp, QPSolverParams(polish=False, verbose=True))
+    torch.testing.assert_close(loud.primal, solve_qp(qp, QPSolverParams(polish=False)).primal,
+                               rtol=0, atol=0)
+    with pytest.raises(NotImplementedError):
+        solve_qp(qp, QPSolverParams(polish=False, backend="lane"))
 
 
 # ------------------------------------------------------- kernel module, f32

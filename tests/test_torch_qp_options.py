@@ -1,7 +1,7 @@
 """The PyTorch port's QP solver options against the JAX package, on the CPU:
 polish (and that the default parameters, which polish, now solve),
-``_certify_point``, ``compensated_check``, ``kkt_refine_iters`` and
-``adaptive_rho``.
+``_certify_point``, ``compensated_check``, ``kkt_refine_iters``,
+``adaptive_rho``, ``verbose``, ``solve_qp_timed`` and ``qp_phase_timings``.
 
 Problems are made with numpy from a seed, in the style of the JAX package's
 ``random_qp`` and tests/test_qp.py's families, and handed to both packages.
@@ -23,14 +23,17 @@ from smooth_feedback_tpu.qp import QuadraticProgram as JQP
 from smooth_feedback_tpu.qp import qp_factorize as j_factorize
 from smooth_feedback_tpu.qp import solve_qp as j_solve_qp
 from smooth_feedback_tpu.qp import solve_qp_batch as j_solve
+from smooth_feedback_tpu.qp import solve_qp_timed as j_solve_timed
 from smooth_feedback_tpu.qp.solver import _certify_point as j_certify_point
 from smooth_feedback_tpu_torch import convert
 from smooth_feedback_tpu_torch.qp import (
     QPSolutionStatus,
     QPSolverParams,
     qp_factorize,
+    qp_phase_timings,
     solve_qp,
     solve_qp_batch,
+    solve_qp_timed,
 )
 from smooth_feedback_tpu_torch.qp.solver import _certify_point
 
@@ -214,3 +217,61 @@ def test_adaptive_rho_rejected_cuda_and_shared():
     jfac = jax.tree.map(lambda a: a[0], j_factorize(_jqp(tuple(a[:1] for a in arrs)), JParams()))
     with pytest.raises(ValueError, match="adaptive_rho"):
         j_solve(jqps, JParams(adaptive_rho=True), None, jfac)
+
+
+def test_solve_qp_timed_matches_jax():
+    """solve_qp_timed in chunks of 15 iterations (f64, polish off): with an
+    infinite budget the statuses and the accumulated iteration counts equal
+    JAX's (a member converged in an earlier chunk adds nothing), and the
+    primal agrees within 1e-9; with a zero budget every member still
+    running after the first chunk returns MaxTime, as in JAX; a single
+    (unbatched) QP goes through too."""
+    arrs = _family(6, B=6)
+    prm = dict(polish=False, max_iter=400, stop_check_iter=5)
+    js = j_solve_timed(_jqp(arrs), JParams(**prm), chunk_iter=15)
+    ts = solve_qp_timed(qp_from_numpy(arrs), QPSolverParams(**prm), chunk_iter=15)
+    _assert_same(js, ts)
+    one = solve_qp_batch(qp_from_numpy(arrs), QPSolverParams(**prm))
+    # chunking restarts from warm starts, so counts exceed a single solve's
+    assert int(ts.iters.max()) > 15 and int(one.iters.max()) > 15
+
+    jz = j_solve_timed(_jqp(arrs), JParams(**prm), max_time=0.0, chunk_iter=15)
+    tz = solve_qp_timed(qp_from_numpy(arrs), QPSolverParams(**prm), max_time=0.0, chunk_iter=15)
+    np.testing.assert_array_equal(tz.status.numpy(), np.asarray(jz.status))
+    np.testing.assert_array_equal(tz.iters.numpy(), np.asarray(jz.iters))
+    assert int(QPSolutionStatus.MaxTime) in tz.status.tolist()
+
+    single = tuple(a[0] for a in arrs)
+    t1 = solve_qp_timed(qp_from_numpy(single), QPSolverParams(**prm), chunk_iter=15)
+    j1 = j_solve_timed(_jqp(single), JParams(**prm), chunk_iter=15)
+    assert t1.primal.shape == (single[0].shape[0],)
+    assert int(t1.status) == int(j1.status) and int(t1.iters) == int(j1.iters)
+
+
+def test_verbose_prints_the_jax_check_lines(capfd):
+    """verbose=True prints one line at each stopping check with JAX's fields
+    (members running, median and largest primal and dual residuals); on the
+    same problems in f64 the lines read as JAX's do."""
+    arrs = _family(7, B=4)
+    prm = dict(polish=False, max_iter=60, stop_check_iter=20, verbose=True)
+    j_solve(_jqp(arrs), JParams(**prm)).primal.block_until_ready()
+    jlines = [ln for ln in capfd.readouterr().out.splitlines() if ln.startswith("[qp]")]
+    solve_qp_batch(qp_from_numpy(arrs), QPSolverParams(**prm))
+    tlines = [ln for ln in capfd.readouterr().out.splitlines() if ln.startswith("[qp]")]
+    assert len(tlines) == 3 and tlines[0].startswith("[qp] iter 1: running ")
+    assert tlines == jlines
+
+
+def test_qp_phase_timings_fields():
+    """qp_phase_timings returns JAX's fields: every phase time finite and
+    non-negative, total at least the solve with polish off, the batch size,
+    and the mean iteration count of the configured solve (a timing on this
+    CPU, not a device figure)."""
+    arrs = _family(8, B=4)
+    out = qp_phase_timings(qp_from_numpy(arrs), QPSolverParams(), reps=1)
+    assert set(out) == {"factor_ms", "iterate_ms", "polish_ms", "total_ms", "iters_mean", "batch"}
+    assert out["batch"] == 4 and all(out[k] >= 0.0 for k in out)
+    sol = solve_qp_batch(qp_from_numpy(arrs))
+    assert out["iters_mean"] == float(sol.iters.double().mean())
+    off = qp_phase_timings(qp_from_numpy(tuple(a[0] for a in arrs)), QPSolverParams(polish=False))
+    assert off["polish_ms"] == 0.0 and off["batch"] == 1
