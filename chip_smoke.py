@@ -18,7 +18,12 @@ kernels:
   algebra);
 - examples/output_feedback_vehicle.py's EKF -> MPC -> ASIF loop (40 of its
   800 steps), both QPs through the per-problem kernel at B = 1;
-- examples/pid_se2.py (2000 steps) and a spline round trip on SE(2), SO(3).
+- examples/pid_se2.py (2000 steps) and a spline round trip on SE(2), SO(3);
+- benchmarks/ocp_se2.py's SE(2) OCP sweep (the JAX package's BASELINE
+  config 5, on-device protocol): B = 64 flat SE(2) x R^2 collocation OCPs
+  on Mesh.uniform(3, 5) (NLP n = m = 112) solved in one lockstep SQP,
+  every subproblem batch (QP n = 112, m = 224) through the per-problem
+  kernel, then the rescue pass for the tail.
 
 Phases:
 
@@ -46,6 +51,15 @@ Phases:
      true state, the estimation error, one admm_problem launch per QP, a
      step split, the first steps again on the torch loop, the kernel held
      against its plain version at the loop's two shapes; pid-spline;
+     shared-route: shared factors past the shared kernel's shapes take the
+     torch shared loop on the card, nothing launched; ocp-sweep: the
+     Optimal share after rescue against the JAX package's on the same
+     velocities, every Optimal member's KKT residual recomputed in float64,
+     one admm_problem launch per lockstep iteration, sweep and rescue
+     times, a synchronised split of one lockstep iteration, the kernel held
+     against its plain version on the first subproblem batch, the first
+     iterations again on the torch loop, and the single-problem form on
+     one member;
   6. a JSON line of the kernels (with each one's bound on this card, its
      launches on each path and the shapes it was held at), the card's name
      and power limit, then the result line.
@@ -101,6 +115,86 @@ OF_PLAIN_STEPS = 5
 OF_KERNEL_STEPS = 10
 OF_DT = 0.025
 OF_LANDMARKS = ((3.0, 1.0), (-2.0, 4.0), (1.0, -3.0), (4.0, -1.0))
+
+# benchmarks/ocp_se2.py's on-device protocol (the JAX package's BASELINE
+# config 5): B = 64 flat SE(2) x R^2 OCPs on Mesh.uniform(3, 5), f32
+OCP_B = 64
+OCP_MESH = (3, 5)
+OCP_QP_SHAPE = (112, 224)  # the SQP subproblem: n, m + n (bound rows)
+OCP_SPLIT_REPS = 5
+# the kernel against its plain version on the path's subproblems: a single
+# iteration on the first lockstep iteration's, FIXED_ITERS and the warm
+# solve on the earliest resolved of the first OCP_KERNEL_ITERS (PERF.md, section 6)
+OCP_FIRST_ITERS = 1
+OCP_KERNEL_ITERS = 12
+OCP_MIN_STOPPED = 4
+# a relative check must resolve 1 % of a member's scale
+OCP_RESOLVE = 1e-2
+# members the three routes solve to the end side by side
+OCP_ROUTE_B = 4
+# the JAX package's Optimal share on the same velocities (f32, CPU, "xla",
+# the same protocol; python3 ocp_sweep_jax.py): 100 % before and after rescue
+OCP_JAX_OPTIMAL = 1.0
+OCP_TOL = 1e-4
+# step 0: a shared-factor batch past the shared kernel's shapes
+SHARED_ROUTE_N = 160
+SHARED_ROUTE_B = 4
+
+
+def ocp_sweep_velocities(B_=OCP_B, seed=SEED):
+    """(B, 3) tracked screw velocities, benchmarks/ocp_se2.py's
+    distribution (``_random_vels``) drawn with numpy: (1 + 0.3 N, 0,
+    0.5 + 0.2 N)."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.standard_normal(B_), rng.standard_normal(B_)
+    return np.stack([1.0 + 0.3 * a, np.zeros(B_), 0.5 + 0.2 * b], axis=1)
+
+
+def ocp_sweep_problem(mesh, dtype=torch.float32, device="cuda"):
+    """benchmarks/ocp_se2.py:112-139 through the port's API: the flat NLP of
+    one tracked screw velocity ``vel`` (3,) on ``mesh``, as ``make(vel)``
+    for ``solve_nlp_sqp_batch``.  X = SE(2) x R^2 (the speeds along the
+    screw), U = R^2; cost tf + q with q the integral of |x (-) xdes|^2/2 +
+    |u|^2/2, |u| <= 1, tf = 5, x0 = (identity, the screw's speeds);
+    flattened about the identity and u = 0.01."""
+    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
+    from smooth_feedback_tpu_torch.ocp import OCP, flatten_ocp, ocp_to_nlp
+
+    X, U = Bundle(SE2, Rn(2)), Rn(2)
+    kw = dict(dtype=dtype, device=device)
+    bound_u = torch.ones(2, **kw)
+    ends = torch.tensor([5.0, 0, 0, 0, 0, 0], **kw)
+    x_nom, u_nom = X.identity(**kw), torch.full((2,), 0.01, **kw)
+
+    def make(vel):
+        speeds = torch.stack([vel[0], vel[2]])
+
+        def xdes(t):
+            return torch.cat([SE2.exp(t * vel), speeds])
+
+        def f(t, x, u):
+            return torch.stack([x[4], torch.zeros_like(x[4]), x[5], u[0], u[1]])
+
+        def g(t, x, u):
+            e = X.rminus(x, xdes(t))
+            # 1-element: a 0-d float32 tensor times a Python scalar gets a
+            # float64 tangent in torch's forward mode
+            return 0.5 * torch.stack([e @ e + u @ u])
+
+        ocp = OCP(
+            X=X, U=U,
+            theta=lambda tf, x0, xf, q: tf + q[0],
+            f=f, g=g,
+            cr=lambda t, x, u: u, crl=-bound_u, cru=bound_u,
+            ce=lambda tf, x0, xf, q: torch.cat(
+                [tf[None], X.log(x0) - torch.cat([torch.zeros_like(vel), speeds])]
+            ),
+            cel=ends, ceu=ends,
+        )
+        return ocp_to_nlp(flatten_ocp(ocp, lambda t: x_nom, lambda t: u_nom), mesh)
+
+    return make
+
 
 # examples/pid_se2.py
 PID_STEPS = 2000
@@ -194,6 +288,14 @@ def layout_phase():
     require((route, smem.value) == ck.problem_route(163, 99),
             "problem_route does not mirror the library")
     require(resident == 1, "the per-problem kernel does not keep Minv and As resident at (163, 99)")
+    n, m = OCP_QP_SHAPE
+    resident = lib.admm_problem_route(n, m, ck.PROBLEM_WARPS, ctypes.byref(smem))
+    route = "resident" if resident else "streaming"
+    phase("layout", f"admm_problem at the OCP sweep's n={n}, m={m}: {route} route, {smem.value} "
+                    f"bytes of shared memory a block")
+    require((route, smem.value) == ck.problem_route(n, m),
+            "problem_route does not mirror the library")
+    require(resident == 1, f"the per-problem kernel does not keep Minv and As resident at ({n}, {m})")
     streamed = lib.admm_problem_route(600, 600, ck.PROBLEM_WARPS, ctypes.byref(smem))
     require(streamed == 0 and ck.problem_route(600, 600)[0] == "streaming",
             "n = m = 600 is not streamed")
@@ -366,21 +468,30 @@ def residual_slack(qps, args, out, prm):
     return float(ratio.max()) if bool(opt.any()) else 0.0
 
 
+def fixed_runs(wrapper, args, qprm, iters):
+    """``iters`` iterations with every tolerance 0 through ``wrapper`` (None:
+    skipped) and the plain version in float32 and float64."""
+    from smooth_feedback_tpu_torch.qp import admm_iterate_reference
+
+    prm = dataclasses.replace(qprm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                              eps_dual_inf=0.0, max_iter=iters)
+    k = None if wrapper is None else wrapper(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *f64(args))
+    torch.cuda.synchronize()
+    return k, r, d
+
+
 def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_ITERS):
     """All tolerances 0: no member can stop, so kernel and plain version run
     exactly ``iters`` iterations and their iterates compare directly, each
     vector within ITER_TOL of its own scale plus twice the f32 plain
     version's distance from an f64 run (the rounding floor).  Returns the
     largest absolute difference."""
-    from smooth_feedback_tpu_torch.qp import QPSolutionStatus, admm_iterate_reference
+    from smooth_feedback_tpu_torch.qp import QPSolutionStatus
 
     MAX_ITER = int(QPSolutionStatus.MaxIterations)
-    prm = dataclasses.replace(qprm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
-                              eps_dual_inf=0.0, max_iter=iters)
-    k = wrapper(prm, *args)
-    r = admm_iterate_reference(prm, *args)
-    d = admm_iterate_reference(prm, *f64(args))
-    torch.cuda.synchronize()
+    k, r, d = fixed_runs(wrapper, args, qprm, iters)
     ran = bool((k[3] == MAX_ITER).all() and (r[3] == MAX_ITER).all()
                and (k[4] == iters).all() and (r[4] == iters).all())
     rows, worst, ok = [], 0.0, True
@@ -411,14 +522,20 @@ def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_
     return worst
 
 
-def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_iters=False):
+def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_iters=False,
+                       noisy=False):
     """One solve through the kernel against the plain version in f32 and in
     f64 on the same inputs: statuses, iteration counts, the unscaled primal
     where the counts agree, and every point the kernel calls Optimal
-    re-checked in f64.  Iteration counts must agree on 99.5 % of members,
-    unless the f32 plain version itself splits from the f64 run more often:
-    then the kernel must match the f64 run's counts at least as often as the
-    f32 plain version does (within half a point).  ``min_optimal`` also
+    re-checked in f64.  Statuses must agree on 99.9 % of members.  Iteration
+    counts must agree on 99.5 % of members, unless the f32 plain version
+    itself splits from the f64 run more often: then the kernel must match
+    the f64 run's counts at least as often as the f32 plain version does
+    (within half a point).  ``noisy`` is for a small batch whose members
+    converge near max_iter, where float32 rounding decides a member's
+    status and count (the OCP sweep's subproblems): the kernel's statuses
+    and counts must then match the f64 run's in as many members as the f32
+    plain version's do, less max(1, B / 32) members.  ``min_optimal`` also
     requires that Optimal share from both versions alike; ``exact_iters``
     every count equal.  Returns the primal error where counts agree and the
     kernel's outputs."""
@@ -452,12 +569,25 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
                     f"tolerance {slack:.4f}")
     phase("kernel", f"{name}: members not Optimal: kernel {not_opt(k)[:20]} plain "
                     f"{not_opt(r)[:20]} plain-f64 {not_opt(d)[:20]}")
-    require(agree >= 0.999, f"{name}: kernel/plain status agreement {agree:.5f} < 0.999")
+    B_ = k[3].numel()
+    allow = max(1, B_ // 32)
+    n_sk, n_sr = int((k[3] == d[3]).sum()), int((r[3] == d[3]).sum())
+    n_kd, n_rd = int((k[4] == d[4]).sum()), int((r[4] == d[4]).sum())
+    if noisy:
+        phase("kernel", f"{name}: statuses equal to the f64 run's in {n_sk} members (f32 plain "
+                        f"{n_sr}), counts in {n_kd} ({n_rd}); allowance {allow}")
+        require(n_sk >= n_sr - allow, f"{name}: statuses match the f64 run's in {n_sk} members, "
+                                      f"the f32 plain version's in {n_sr}")
+    else:
+        require(agree >= 0.999, f"{name}: kernel/plain status agreement {agree:.5f} < 0.999")
     if min_optimal is not None:
         require(k_opt == r_opt, f"{name}: kernel and plain Optimal shares differ")
         require(k_opt >= min_optimal, f"{name}: Optimal share {k_opt:.5f}")
     if exact_iters:
         require(eq_it == 1.0, f"{name}: equal iteration counts {eq_it:.5f}")
+    elif noisy:
+        require(n_kd >= n_rd - allow, f"{name}: counts match the f64 run's in {n_kd} members, "
+                                      f"the f32 plain version's in {n_rd}")
     else:
         require(eq_it >= 0.995 or (eq_rd < 0.995 and eq_kd >= eq_rd - 0.005),
                 f"{name}: equal iteration counts kernel/plain {eq_it:.5f}, kernel/plain-f64 "
@@ -1676,6 +1806,419 @@ def output_feedback_kernel_phase(p, kept, dev):
     return worst, rows
 
 
+# -------------------------------------------------- the SE(2) OCP sweep
+
+
+def ocp_sweep_params(backend):
+    """benchmarks/ocp_se2.py:166-194 at B <= 64: unchunked, no probe, no
+    stall freeze; the subproblems on ``backend``."""
+    from smooth_feedback_tpu_torch.qp import QPSolverParams
+    from smooth_feedback_tpu_torch.solvers import SQPParams
+
+    return SQPParams(
+        max_iter=60, tol=OCP_TOL, compensated_kkt=True, qp_budget=36000,
+        qp=QPSolverParams(eps_abs=1e-6, eps_rel=1e-6, max_iter=1200, polish=True,
+                          kkt_refine_iters=1, backend=backend, compensated_check=True),
+    )
+
+
+def ocp_sweep_path(dev, dtype=torch.float32, B_=OCP_B, mesh=OCP_MESH):
+    """``(make, vels, z0)``: the sweep's NLP family on ``Mesh.uniform(*mesh)``,
+    the B tracked velocities and the start (tf = 5, zero deviations)."""
+    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
+
+    make = ocp_sweep_problem(Mesh.uniform(*mesh), dtype, dev)
+    vels = torch.as_tensor(ocp_sweep_velocities(B_), dtype=dtype, device=dev)
+    z0 = torch.zeros((B_, make(vels[0]).n), dtype=dtype, device=dev)
+    z0[:, 0] = 5.0
+    return make, vels, z0
+
+
+def ocp_sweep_rescue(make, vels, sol, prm, z0):
+    """benchmarks/ocp_se2.py:276-279: rescue_nonoptimal with budget_scale 4,
+    adaptive rho and stall_scale 3, cold start z0.  Adaptive rho has no
+    kernel route, so the rescue's QPs run the torch loop."""
+    from smooth_feedback_tpu_torch.solvers import rescue_nonoptimal
+
+    rprm = dataclasses.replace(prm, qp=dataclasses.replace(prm.qp, backend="torch"))
+    return rescue_nonoptimal(make, vels, sol, rprm, x0_cold=z0, budget_scale=4,
+                             adaptive_rho=True, stall_scale=3)
+
+
+def ocp_kkt_f64(vels, sol, mesh=OCP_MESH):
+    """Every member's KKT residual recomputed in float64 on the CPU at the
+    returned point (x, lam, z = zu - zl): max of |grad f + J' lam + z|_inf
+    and the largest bound violation."""
+    from torch.func import grad, jacrev, vmap
+    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
+
+    make = ocp_sweep_problem(Mesh.uniform(*mesh), torch.float64, "cpu")
+    d = lambda a: a.detach().to("cpu", torch.float64)
+    th, x, lam, z = d(vels), d(sol.x), d(sol.lam), d(sol.zu) - d(sol.zl)
+    gval = vmap(lambda t, xx: make(t).g(xx))(th, x)
+    gr = vmap(lambda t, xx: grad(make(t).f)(xx))(th, x)
+    J = vmap(lambda t, xx: jacrev(make(t).g)(xx))(th, x)
+    xl, xu, gl, gu = vmap(lambda t: tuple(make(t)[4:8]))(th)
+    stat = (gr + torch.einsum("bmn,bm->bn", J, lam) + z).abs().amax(dim=1)
+    over = lambda lo, v, hi: torch.maximum(torch.clamp(lo - v, min=0.0), torch.clamp(v - hi, min=0.0))
+    return torch.maximum(stat, torch.maximum(over(gl, gval, gu).amax(dim=1),
+                                             over(xl, x, xu).amax(dim=1)))
+
+
+def pct(a, q):
+    return float(np.percentile(a.cpu().numpy(), q))
+
+
+def ocp_sweep_phase(dev):
+    """benchmarks/ocp_se2.py's on-device protocol at B = 64, float32: the
+    lockstep SQP with every subproblem through admm_problem (one launch an
+    iteration), then the rescue.  Requires an Optimal share after rescue
+    at least the JAX package's on the same velocities, every Optimal
+    member's float64 KKT residual <= tol, and the launches equal to the
+    lockstep iterations.  Returns the sweep's launches and solution."""
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
+    from smooth_feedback_tpu_torch.solvers import solve_nlp_sqp_batch
+
+    make, vels, z0 = ocp_sweep_path(dev)
+    prm = ocp_sweep_params("cuda")
+    nlp0 = make(vels[0])
+    require((nlp0.n, nlp0.n + nlp0.m) == OCP_QP_SHAPE, f"subproblem shape {(nlp0.n, nlp0.m)}")
+    fall0 = qsolver.shared_fallthroughs
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solve_nlp_sqp_batch(make, vels, z0, prm)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    counts = read_counts()
+    lockstep = int(sol.iters.max())
+    st0 = sol.status.clone()
+    reset_counts()
+    t0 = time.perf_counter()
+    merged, n_resc = ocp_sweep_rescue(make, vels, sol, prm, z0)
+    torch.cuda.synchronize()
+    t_rescue = time.perf_counter() - t0
+    rcounts = read_counts()
+    opt0 = float((st0 == 0).float().mean())
+    opt = float((merged.status == 0).float().mean())
+    kkt64 = ocp_kkt_f64(vels, merged)
+    is_opt = (merged.status == 0).cpu()
+    worst64 = float(kkt64[is_opt].max()) if bool(is_opt.any()) else 0.0
+    phase("ocp-sweep", f"B={OCP_B} flat SE(2) x R^2 OCPs on Mesh.uniform{OCP_MESH} (NLP n={nlp0.n}, "
+                       f"m={nlp0.m}; QP n={OCP_QP_SHAPE[0]}, m={OCP_QP_SHAPE[1]}), float32: Optimal "
+                       f"{opt0 * 100:.3f}% after the sweep, {opt * 100:.3f}% after rescue (JAX, f32 "
+                       f"CPU, same velocities: {OCP_JAX_OPTIMAL * 100:.3f}%); {n_resc} members "
+                       f"rescued; statuses {merged.status.tolist()}")
+    phase("ocp-sweep", f"SQP iterations p50 {pct(sol.iters, 50):.0f} max {lockstep}, qp_iters p50 "
+                       f"{pct(sol.qp_iters, 50):.0f} max {int(sol.qp_iters.max())}, KKT median "
+                       f"{pct(merged.kkt_res, 50):.3e} max {float(merged.kkt_res.max()):.3e}; Optimal "
+                       f"members' KKT recomputed in float64 on the CPU: max {worst64:.3e} (tol "
+                       f"{OCP_TOL:g})")
+    phase("ocp-sweep", f"sweep {t_sweep:.3f} s, rescue {t_rescue:.3f} s: "
+                       f"{OCP_B / (t_sweep + t_rescue):.3f} OCP solves/s; launches: sweep {counts} in "
+                       f"{lockstep} lockstep iterations, rescue {rcounts} (adaptive rho: torch loop); "
+                       f"shared-loop fall-throughs {qsolver.shared_fallthroughs - fall0}")
+    require(opt >= OCP_JAX_OPTIMAL, f"Optimal share after rescue {opt:.5f} < JAX's {OCP_JAX_OPTIMAL}")
+    require(worst64 <= OCP_TOL, f"an Optimal member's float64 KKT residual is {worst64:.3e}")
+    require(counts == {"admm_shared": 0, "admm_problem": lockstep},
+            f"admm_problem launches {counts} != {lockstep} lockstep iterations")
+    require(rcounts == {"admm_shared": 0, "admm_problem": 0}, f"the rescue launched {rcounts}")
+    return counts, sol
+
+
+def ocp_lockstep(dev, iters, trace, backend="cuda", dtype=torch.float32):
+    """The sweep's first ``iters`` lockstep SQP iterations with ``trace``
+    called at each stage (the lockstep loop's own hook: the public entry
+    points take none), inside the entry points' float32 matmul scope."""
+    from smooth_feedback_tpu_torch._precision import ieee_f32_matmul
+    from smooth_feedback_tpu_torch.solvers import sqp
+
+    make, vels, z0 = ocp_sweep_path(dev, dtype)
+    prm = dataclasses.replace(ocp_sweep_params(backend), max_iter=iters)
+    with ieee_f32_matmul():
+        return sqp._solve_nlp_sqp_batch_impl(make, vels, z0, prm, None, trace)
+
+
+def ocp_sweep_split(dev):
+    """One lockstep SQP iteration from the sweep's start, synchronised at
+    each stage, medians of OCP_SPLIT_REPS (after a warm-up): derivatives
+    (the Lagrangian Hessian, then f, g, gradient, Jacobian and KKT at the
+    new iterate), convexification, QP, line search; and the QP itself
+    split into factorization and scaling, kernel, and finalize (polish and
+    the compensated check).  Returns the first iteration's subproblem and
+    warm start."""
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda, per_problem_kernel_args, solve_qp_batch
+
+    stages, captured = [], {}
+
+    def trace(stage, info):
+        torch.cuda.synchronize()
+        stages[-1][stage] = time.perf_counter()
+        if stage == "qp":
+            captured.update(info)
+
+    for _ in range(OCP_SPLIT_REPS + 1):
+        stages.append({})
+        ocp_lockstep(dev, 1, trace)
+    order = ["start", "hessian", "convexify", "qp", "line_search", "derivatives"]
+    ms = {b: float(np.median([1e3 * (s[b] - s[a]) for s in stages[1:]]))
+          for a, b in zip(order, order[1:])}
+    qp, ws, qprm = captured["qp"], captured["ws"], ocp_sweep_params("cuda").qp
+    sync = torch.cuda.synchronize
+
+    def timed(fn):
+        fn()
+        sync()
+        out = []
+        for _ in range(OCP_SPLIT_REPS):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    args = per_problem_kernel_args(qp, None, ws, qprm)
+    prep = timed(lambda: per_problem_kernel_args(qp, None, ws, qprm))
+    kern = timed(lambda: admm_iterate_cuda(qprm, *args))
+    whole = timed(lambda: solve_qp_batch(qp, qprm, ws))
+    phase("ocp-sweep", "one lockstep SQP iteration, synchronised split (medians of "
+                       f"{OCP_SPLIT_REPS}): derivatives {ms['hessian'] + ms['derivatives']:.3f} ms "
+                       f"(Lagrangian Hessian {ms['hessian']:.3f}, f/g/grad/J/KKT "
+                       f"{ms['derivatives']:.3f}), convexification {ms['convexify']:.3f} ms, QP "
+                       f"{ms['qp']:.3f} ms, line search {ms['line_search']:.3f} ms; the QP alone: "
+                       f"factorization and scaling {prep:.3f} ms, kernel {kern:.3f} ms, finalize "
+                       f"(polish, compensated check) {whole - prep - kern:.3f} ms, whole {whole:.3f} ms")
+    return qp, ws
+
+
+def relative_floor(r, d):
+    """Per member and vector (x, z, y): the float32 plain version's distance
+    from the float64 run relative to the member's scale max(1, |v|_inf), and
+    the members all of whose values are finite in both runs."""
+    fin = lambda o: torch.stack([torch.isfinite(v).all(dim=1) for v in o[:3]]).all(dim=0)
+    scale = [dt.abs().amax(dim=1).clamp(min=1.0) for dt in d[:3]]
+    rel = [(rt.double() - dt).abs().amax(dim=1) / sc for rt, dt, sc in zip(r[:3], d[:3], scale)]
+    return rel, scale, fin(r) & fin(d)
+
+
+def ocp_resolved_subproblem(caps, qprm):
+    """The earliest captured subproblem batch after the first that float32
+    resolves: at least OCP_MIN_STOPPED members' solves on the path stopped
+    before max_iter, and over FIXED_ITERS warm iterations the float32 plain
+    version's median distance from the float64 run, relative to each
+    member's scale (the largest of x, z, y), is within OCP_RESOLVE / 10.
+    Chosen from the plain versions alone, and as early as possible: later
+    batches hold more members already at their fixed point."""
+    from smooth_feedback_tpu_torch.qp import per_problem_kernel_args
+
+    rows = []
+    for it, (qp, ws, sol) in enumerate(caps[1:], start=2):
+        stopped = int((sol.iters < qprm.max_iter).sum())
+        if stopped < OCP_MIN_STOPPED:
+            rows.append(f"{it}: {stopped} stopped")
+            continue
+        _, r, d = fixed_runs(None, per_problem_kernel_args(qp, None, ws, qprm), qprm, FIXED_ITERS)
+        rel, _, ok = relative_floor(r, d)
+        med = max(float(v[ok].median()) for v in rel)
+        rows.append(f"{it}: {stopped} stopped, median relative floor {med:.3e}")
+        if med <= OCP_RESOLVE / 10:
+            phase("kernel", f"ocp-sweep lockstep iterations captured: {'; '.join(rows)}")
+            return it, qp, ws
+    phase("kernel", f"ocp-sweep lockstep iterations captured: {'; '.join(rows)}")
+    require(False, f"no captured subproblem batch has {OCP_MIN_STOPPED} members that stopped "
+                   f"early and a median relative floor <= {OCP_RESOLVE / 10:g}")
+
+
+def relative_fixed_check(wrapper, args, qprm, iters, label):
+    """Kernel and plain version with every tolerance 0 for ``iters``
+    iterations, judged member by member relative to each member's own scale
+    (the path's members span orders of magnitude), as distributions over
+    the members: a few members are chaotic in float32 (their distance from
+    the float64 run differs by factors between two float32 runs), so no
+    single member decides.  Per vector, the kernel's median distance from
+    the float64 run must be within ITER_TOL + twice the float32 plain
+    version's median, a bound that must itself lie within OCP_RESOLVE (a
+    kernel off by 1 % of the scale in half the members fails), and the
+    kernel must come within OCP_RESOLVE / 10 of the float64 run in as many
+    members as the plain version does, less an eighth of the fleet (a
+    kernel wrong in a few members fails).  Members with non-finite values in
+    the plain runs must be non-finite in the kernel's too and are left out.
+    Returns the largest |kernel - plain| over the members the plain version
+    resolves (within OCP_RESOLVE / 10)."""
+    from smooth_feedback_tpu_torch.qp import QPSolutionStatus
+
+    MAX_ITER = int(QPSolutionStatus.MaxIterations)
+    k, r, d = fixed_runs(wrapper, args, qprm, iters)
+    rel, scale, ok = relative_floor(r, d)
+    fin_k = torch.stack([torch.isfinite(v).all(dim=1) for v in k[:3]]).all(dim=0)
+    ran = bool(((k[3] == MAX_ITER) & (r[3] == MAX_ITER) & (k[4] == iters) & (r[4] == iters))[ok].all())
+    nonfinite_same = bool((fin_k | ~ok).all() and (~fin_k | ok).all())
+    tau, allow = OCP_RESOLVE / 10, ok.numel() // 8
+    resolved = ok & torch.stack([fl <= tau for fl in rel]).all(dim=0)
+    rows, worst, good = [], 0.0, bool(ok.any()) and nonfinite_same
+    for name, kt, rt, dt, fl, sc in zip("xzy", k[:3], r[:3], d[:3], rel, scale):
+        if bool(resolved.any()):
+            worst = max(worst, float((kt - rt).abs().amax(dim=1)[resolved].max()))
+        dist = ((kt.double() - dt).abs().amax(dim=1) / sc)[ok]
+        fmed, emed = float(fl[ok].median()), float(dist.median())
+        n_k, n_r = int((dist <= tau).sum()), int((fl[ok] <= tau).sum())
+        bmed = ITER_TOL + 2 * fmed
+        rows.append(f"{name} median {emed:.3e} (plain {fmed:.3e}), within {tau:g}: {n_k} (plain "
+                    f"{n_r}), largest {float(dist.max()):.3e} (plain {float(fl[ok].max()):.3e})")
+        good = good and emed <= bmed and bmed <= OCP_RESOLVE and n_k >= n_r - allow
+    phase("kernel", f"{label}: fixed {iters} iterations, all tolerances 0, {int(ok.sum())} of "
+                    f"{ok.numel()} members finite in the plain runs (the same members finite in "
+                    f"the kernel's: {nonfinite_same}), all ran them: {ran}; distance from the f64 "
+                    f"plain run relative to each member's scale, kernel (f32 plain): "
+                    + ", ".join(rows) + f"; largest |kernel - plain| over the {int(resolved.sum())} "
+                    f"members the plain version resolves {worst:.3e} (bounds: median {ITER_TOL:g} "
+                    f"+ 2 x the plain version's and <= {OCP_RESOLVE:g}; within {tau:g} in as many "
+                    f"members less {allow})")
+    require(ran, "with all tolerances 0 a member stopped before max_iter")
+    require(good, f"{label}: the kernel differs beyond the relative bounds")
+    return worst
+
+
+def ocp_sweep_kernel_phase(first, dev):
+    """admm_problem against its plain version on the path's own subproblem
+    batches (B = 64, n = 112, m = 224).  The first lockstep iteration's
+    (lambda = 0: H = c G + 1e-6 I) is one float32 cannot follow past a
+    single ADMM iteration, so it is held for one; then the earliest batch
+    of the first OCP_KERNEL_ITERS iterations that float32 resolves
+    (:func:`ocp_resolved_subproblem`) is held over FIXED_ITERS warm
+    iterations and in the warm solve the path runs (compare_with_plain:
+    statuses, iteration counts, the primal where the counts agree, the f64
+    re-check of every Optimal point).  The kernels line's times are the
+    first batch's whole 1200-iteration solve.  Returns the worst absolute
+    error (the first batch's iteration and the warm solve's primal where
+    counts agree) and the row (ms, plain_ms, bound_ms, bound_by)."""
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda, admm_iterate_reference, per_problem_kernel_args
+
+    qprm = ocp_sweep_params("cuda").qp
+    qp, ws = first
+    n, m, B_ = qp.A.shape[-1], qp.A.shape[-2], qp.A.shape[0]
+    warm = per_problem_kernel_args(qp, None, ws, qprm)
+    worst = relative_fixed_check(admm_iterate_cuda, warm, qprm, OCP_FIRST_ITERS,
+                                 f"ocp-sweep ({n}, {m}) B={B_}, lockstep iteration 1")
+    caps = []
+    ocp_lockstep(dev, OCP_KERNEL_ITERS,
+                 lambda s, i: caps.append((i["qp"], i["ws"], i["sol"])) if s == "qp" else None)
+    it, qp2, ws2 = ocp_resolved_subproblem(caps, qprm)
+    label = f"ocp-sweep ({n}, {m}) B={B_}, lockstep iteration {it}"
+    warm2 = per_problem_kernel_args(qp2, None, ws2, qprm)
+    # not counted in the kernels line's max_abs_err: members whose iterates
+    # grow to ~1e29 in every run make an absolute difference meaningless
+    relative_fixed_check(admm_iterate_cuda, warm2, qprm, FIXED_ITERS, label)
+    err, _ = compare_with_plain(f"{label}, warm solve", admm_iterate_cuda, qprm, warm2, qp2,
+                                noisy=True)
+    k = admm_iterate_cuda(qprm, *warm)
+    row = (time_ms(lambda: admm_iterate_cuda(qprm, *warm), 20),
+           time_ms(lambda: admm_iterate_reference(qprm, *warm), 2), *bound(warm, k, qprm))
+    phase("kernel", f"ocp-sweep ({n}, {m}) B={B_}, lockstep iteration 1, warm solve: kernel "
+                    f"{row[0]:.4f} ms, plain {row[1]:.4f} ms (means of back-to-back calls), mean "
+                    f"{float(k[4].float().mean()):.1f} iterations; bound {row[2]:.6f} ms ({row[3]}, "
+                    f"{100 * row[2] / row[0]:.2f}%)")
+    return max(worst, err), row
+
+
+def ocp_sweep_routes_phase(dev, sweep_sol):
+    """The first OCP_ROUTE_B members the sweep called Optimal, solved again
+    to the end on three routes on the card: subproblems through the kernel
+    (float32), the torch loop in float32, and in float64.  Each run must
+    call every member Optimal, and the kernel route's x must lie within
+    1e-4 of its scale plus twice the float32 torch route's distance from
+    the float64 one (the measured float32 noise), a floor that must itself
+    lie within OCP_RESOLVE of the scale.  Returns the distance."""
+    from smooth_feedback_tpu_torch.solvers import solve_nlp_sqp_batch
+
+    idx = torch.nonzero(sweep_sol.status == 0).flatten()[:OCP_ROUTE_B]
+    out = {}
+    for name, backend, dtype in (("cuda", "cuda", torch.float32), ("torch", "torch", torch.float32),
+                                 ("torch64", "torch", torch.float64)):
+        make, vels, z0 = ocp_sweep_path(dev, dtype)
+        out[name] = solve_nlp_sqp_batch(make, vels[idx], z0[idx], ocp_sweep_params(backend))
+    kc, kt, k64 = out["cuda"], out["torch"], out["torch64"]
+    optimal = all(bool((s.status == 0).all()) for s in out.values())
+    dx = float((kc.x - kt.x).abs().max())
+    floor = float((kt.x.double() - k64.x).abs().max())
+    scale = max(1.0, float(k64.x.abs().max()))
+    its = {k: v.iters.tolist() for k, v in out.items()}
+    phase("ocp-sweep-routes", f"members {idx.tolist()} solved to the end on the kernel, the f32 "
+                              f"torch loop and the f64 torch loop: all Optimal {optimal}; SQP "
+                              f"iterations {its}; max |x_kernel - x_torch| {dx:.3e} (f32 torch - f64 "
+                              f"torch {floor:.3e}, scale {scale:.3e}; bound 1e-4 x scale + 2 x floor, "
+                              f"floor <= {OCP_RESOLVE:g} x scale)")
+    require(optimal, "a route left a member the sweep solved not Optimal")
+    require(floor <= OCP_RESOLVE * scale, "the f32 noise floor does not resolve the routes")
+    require(dx <= 1e-4 * scale + 2 * floor, "the kernel route's solution differs beyond the bound")
+    return dx
+
+
+def ocp_single_phase(dev, sweep_sol):
+    """solve_nlp_sqp on member 0 alone (a fleet of one: admm_problem at
+    B = 1): its status equal to the sweep's and its float64 KKT <= tol."""
+    from smooth_feedback_tpu_torch.nlp import NLPSolution
+    from smooth_feedback_tpu_torch.solvers import solve_nlp_sqp
+
+    make, vels, z0 = ocp_sweep_path(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    s1 = solve_nlp_sqp(make(vels[0]), z0[0], ocp_sweep_params("cuda"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    kkt = float(ocp_kkt_f64(vels[:1], NLPSolution(*(a[None] for a in s1)))[0])
+    phase("ocp-single", f"solve_nlp_sqp on member 0 (B = 1): status {int(s1.status)} (sweep "
+                        f"{int(sweep_sol.status[0])}), {int(s1.iters)} SQP iterations (sweep "
+                        f"{int(sweep_sol.iters[0])}), KKT {float(s1.kkt_res):.3e}, float64 {kkt:.3e}; "
+                        f"launches {counts}; {secs:.3f} s")
+    require(int(s1.status) == int(sweep_sol.status[0]), "the single form's status differs")
+    require(kkt <= OCP_TOL, f"the single form's float64 KKT residual is {kkt:.3e}")
+    require(counts == {"admm_shared": 0, "admm_problem": int(s1.iters)},
+            f"single form launches {counts}")
+
+
+def shared_route_problem(n=SHARED_ROUTE_N, B_=SHARED_ROUTE_B, seed=SEED):
+    """numpy ``(P, q, A, l, u)`` of a shared-factor batch (P and A with a
+    leading axis of 1): P = M M'/n + I, A ~ N(0, 1/n), per-member q ~ N(0, 1)
+    and box bounds -l = u ~ 0.5 + U(0, 1)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    P = M @ M.T / n + np.eye(n)
+    A = rng.standard_normal((n, n)) / np.sqrt(n)
+    q = rng.standard_normal((B_, n))
+    u = 0.5 + rng.random((B_, n))
+    return P[None], q, A[None], -u, u
+
+
+def shared_route_phase(dev):
+    """Shared factors at n = m = 160, past the shared kernel's shapes: on
+    backend "cuda" the torch shared loop runs on the card, nothing is
+    launched, and statuses and iteration counts equal backend "torch"'s."""
+    from smooth_feedback_tpu_torch.convert import qp_from_numpy
+    from smooth_feedback_tpu_torch.qp import QPSolverParams, qp_factorize, solve_qp_batch
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck, solver as qsolver
+
+    qp = qp_from_numpy(shared_route_problem(), dev, torch.float32)
+    n = qp.P.shape[-1]
+    factors = qp_factorize(qp._replace(q=qp.q[:1], l=qp.l[:1], u=qp.u[:1]))
+    factors = type(factors)(*(a[0] for a in factors))
+    fall0 = qsolver.shared_fallthroughs
+    reset_counts()
+    k = solve_qp_batch(qp, QPSolverParams(backend="cuda", polish=False), factors=factors)
+    counts, falls = read_counts(), qsolver.shared_fallthroughs - fall0
+    r = solve_qp_batch(qp, QPSolverParams(backend="torch", polish=False), factors=factors)
+    phase("shared-route", f"shared factors at n=m={n}, B={qp.q.shape[0]} on backend cuda: "
+                          f"shared_kernel_fits {ck.shared_kernel_fits(n, n, 8)}, route: torch shared "
+                          f"loop on the card ({falls} fall-through, launches {counts}); statuses "
+                          f"{k.status.tolist()} iters {k.iters.tolist()} (backend torch "
+                          f"{r.status.tolist()} {r.iters.tolist()})")
+    require(counts == {"admm_shared": 0, "admm_problem": 0} and falls == 1,
+            "the shared route launched a kernel")
+    require(torch.equal(k.status, r.status) and torch.equal(k.iters, r.iters),
+            "the shared route differs from backend torch")
+
+
 # -------------------------------------------------------- PID and splines
 
 
@@ -1730,6 +2273,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
     layout_phase()
+    shared_route_phase(dev)
     t0 = time.perf_counter()
     step, ws0 = make_main_path("cuda", dev)
     fleet, fws0 = make_fleet_path("cuda", dev)
@@ -1772,16 +2316,28 @@ def main():
     pid_spline_phase(dev)
     phase("launches", f"output-feedback {ofcounts} in {OF_STEPS} steps (2 QP solves a step)")
 
+    # the NLP slice: every lockstep SQP subproblem through admm_problem
+    ocounts, osol = ocp_sweep_phase(dev)
+    first = ocp_sweep_split(dev)
+    worst_c, _ = ocp_sweep_kernel_phase(first, dev)
+    # the path-level distance between routes is held to its own bound (f32
+    # noise of a converged SQP), not counted as kernel error
+    ocp_sweep_routes_phase(dev, osol)
+    ocp_single_phase(dev, osol)
+    rows["admm_problem"] = (max(rows["admm_problem"][0], worst_c), rows["admm_problem"][1])
+
     by_path = {
         "admm_shared": {"condensed": launches["admm_shared"],
                         "vehicle-asif": vcounts["admm_shared"]},
         "admm_problem": {"per-member fleet": launches["admm_problem"],
-                         "output-feedback": ofcounts["admm_problem"]},
+                         "output-feedback": ofcounts["admm_problem"],
+                         "ocp-sweep": ocounts["admm_problem"]},
     }
     shapes = {
         "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64"],
         "admm_problem": [f"B={FLEET_B} n=163 m=99", f"B={ASIF_B} n=3 m=53"]
-                        + [f"B=1 (n, m)={k}" for k in orows],
+                        + [f"B=1 (n, m)={k}" for k in orows]
+                        + [f"B={OCP_B} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]}"],
     }
     kernels = []
     for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():

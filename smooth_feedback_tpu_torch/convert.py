@@ -2,7 +2,9 @@
 
 State made elsewhere (for example the JAX package's arrays, passed through
 ``np.asarray``) enters the port through these, so both packages solve the
-same problems from the same warm starts.  Each takes a ``device`` (the card
+same problems from the same warm starts: QPs and their factors and
+solutions, MPC weights, bounds, EKF states, NLP solutions and SQP warm
+starts.  Each takes a ``device`` (the card
 unless told otherwise, like every entry point of the port) and a ``dtype``;
 integer fields (status, iters) stay int32.
 """
@@ -14,6 +16,7 @@ import torch
 
 from .controllers.mpc import MPCWeights
 from .estimators.ekf import EKFFleetState, EKFState, SqrtEKFFleetState, SqrtEKFState
+from .nlp import NLPSolution
 from .qp.solver import QPFactors
 from .qp.types import QPSolution, QuadraticProgram
 from .utils.bounds import ManifoldBounds
@@ -81,3 +84,25 @@ def ekf_fleet_state_from_numpy(state, device="cuda", dtype=torch.float64) -> EKF
 def sqrt_ekf_fleet_state_from_numpy(state, device="cuda", dtype=torch.float64) -> SqrtEKFFleetState:
     """``(g (B, nparams), St (ndof, ndof, B))`` arrays -> SqrtEKFFleetState."""
     return SqrtEKFFleetState(*(_t(a, device, dtype) for a in state))
+
+
+def nlp_solution_from_numpy(sol, device="cuda", dtype=torch.float64) -> NLPSolution:
+    """An NLPSolution-like tuple of arrays (status, iters, x, zl, zu, lam,
+    objective, kkt_res, qp_iters; any leading batch axes) -> NLPSolution,
+    for example a fleet solution to hand ``rescue_nonoptimal``."""
+    status, iters, x, zl, zu, lam, objective, kkt_res, qp_iters = sol
+    i32 = lambda a: _t(a, device, torch.int32)
+    return NLPSolution(
+        status=i32(status), iters=i32(iters),
+        **{k: _t(a, device, dtype) for k, a in
+           (("x", x), ("zl", zl), ("zu", zu), ("lam", lam), ("objective", objective),
+            ("kkt_res", kkt_res))},
+        qp_iters=i32(qp_iters),
+    )
+
+
+def sqp_warmstart_from_numpy(x0, lam0=None, device="cuda", dtype=torch.float64):
+    """An SQP warm start ``(x0, lam0)`` (lam0 may be None) -> tensors, the
+    ``x0`` and ``lam0`` arguments of ``solve_nlp_sqp`` and
+    ``solve_nlp_sqp_batch``."""
+    return _t(x0, device, dtype), None if lam0 is None else _t(lam0, device, dtype)

@@ -178,6 +178,18 @@ def smem_bytes(n: int, m: int, block: int) -> int:
     return 4 * (_round4(ld * (2 * n + m)) + 64 * K * slots)
 
 
+def shared_kernel_fits(n: int, m: int, block: int) -> bool:
+    """Whether the shared kernel holds a problem of ``(n, m)`` in blocks of
+    ``block`` problems: max(n, m) <= ``MAX_DIM`` and the block's matrices
+    and staging within ``SMEM_LIMIT`` (the counterpart of the JAX package's
+    ``shared_kernel_fits``).  ``solve_qp_batch`` routes a shared-factor
+    batch that does not fit to the torch shared loop.  Raises for a
+    ``block`` outside 1..``MAX_BLOCK``."""
+    if not 1 <= block <= MAX_BLOCK:
+        raise ValueError(f"kernel_block must be in [1, {MAX_BLOCK}], got {block}")
+    return max(n, m) <= MAX_DIM and smem_bytes(n, m, block) <= SMEM_LIMIT
+
+
 def shared_plan(B: int, n: int, m: int, block: int):
     """How the shared kernel lays out ``B`` problems in blocks of at most
     ``block`` (mirrors ``plan`` in csrc/admm_shared.cu): ``(P, pb, warps,
@@ -252,9 +264,7 @@ def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u
                 f"{need} <= {SMEM_LIMIT} bytes of shared memory"
             )
     else:
-        if not 1 <= prm.kernel_block <= MAX_BLOCK:
-            raise ValueError(f"kernel_block must be in [1, {MAX_BLOCK}], got {prm.kernel_block}")
-        if max(n, m) > MAX_DIM or smem_bytes(n, m, prm.kernel_block) > SMEM_LIMIT:
+        if not shared_kernel_fits(n, m, prm.kernel_block):
             raise ValueError(
                 f"the shared-matrix kernel cannot hold n={n}, m={m}: it needs "
                 f"max(n, m) <= {MAX_DIM} and {smem_bytes(n, m, prm.kernel_block)} "

@@ -11,9 +11,11 @@ Shared factors (``qp_factorize`` of one template, no batch axis on
 ``(B, k) @ (k, j)`` GEMM and no batch of copies is materialized.
 
 Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs a kernel of
-``qp/cuda_kernel.py``: the shared-matrix kernel against shared factors, the
-per-problem kernel against per-problem factors or none (then every member is
-scaled and factorized here first, in torch).
+``qp/cuda_kernel.py``: the shared-matrix kernel against shared factors (a
+shape it cannot hold runs the torch shared loop instead, on the problems'
+device, and counts one ``shared_fallthroughs``), the per-problem kernel
+against per-problem factors or none (then every member is scaled and
+factorized here first, in torch).
 
 Options, as in the JAX package: ``verbose`` (a host line at each stopping
 check of the torch loop; the kernels run their loop on the card and print
@@ -559,7 +561,13 @@ def per_problem_kernel_args(
         return _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
 
 
+# shared-factor solves on backend="cuda" that ran the torch shared loop
+# because the shared kernel cannot hold their shape (nothing launched)
+shared_fallthroughs = 0
+
+
 def _solve_qp_batch_impl(qp, prm, warmstart, factors):
+    global shared_fallthroughs
     P, q, A, l, u, shared = _batch_view(qp, factors)
     if prm.adaptive_rho and (prm.backend == "cuda" or shared):
         raise ValueError(
@@ -577,7 +585,18 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
         A, q, l, u, factors, warmstart, shared
     )
 
-    if prm.backend == "cuda":
+    on_kernel = prm.backend == "cuda"
+    if on_kernel and shared:
+        from .cuda_kernel import shared_kernel_fits
+
+        # shapes the shared kernel cannot hold take the torch shared loop
+        # below on the problems' own device, as the JAX package's "pallas"
+        # backend falls through to its XLA shared-GEMM path; decided by
+        # shape before anything launches
+        if not shared_kernel_fits(A.shape[-1], A.shape[-2], prm.kernel_block):
+            on_kernel = False
+            shared_fallthroughs += 1
+    if on_kernel:
         from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared
 
         if shared:

@@ -462,3 +462,66 @@ def test_problem_kernel_at_output_feedback_shapes(dev):
             floor = float((rt.double() - dt).abs().max())
             scale = max(1.0, float(dt.abs().max()))
             assert float((kt - rt).abs().max()) <= ITER_TOL * scale + 2 * floor
+
+
+def test_problem_kernel_at_ocp_sweep_shape(dev):
+    """The per-problem kernel at the SE(2) OCP sweep's subproblem shape
+    (n = 112, m = 224, B = 64; resident in shared memory) on
+    problem_family: 20 fixed iterations within chip_smoke's bound (ITER_TOL
+    of each vector's scale plus twice the f32 plain version's distance from
+    an f64 run), then a solve with the sweep's inner settings where both
+    return the same statuses and the kernel matches an f64 run's counts at
+    least as often as the f32 plain version does, less half a point
+    (chip_smoke.compare_with_plain's rule: at eps 1e-6 an f32 solve stops
+    at whichever check its rounding passes first)."""
+    import dataclasses
+
+    from chip_smoke import ITER_TOL, OCP_QP_SHAPE, ocp_sweep_params
+
+    n, m = OCP_QP_SHAPE
+    assert problem_route(n, m)[0] == "resident"
+    prm = ocp_sweep_params("cuda").qp
+    args = _problem_inputs(n, m, 64, seed=3, dev=dev, prm=prm)
+    zero = dataclasses.replace(prm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                               eps_dual_inf=0.0, max_iter=20)
+    # the dual-infeasible member's certificate holds even at tolerance 0
+    args[15][4] = int(QPSolutionStatus.DualInfeasible)
+    run = torch.ones(64, dtype=torch.bool, device=dev)
+    run[[1, 4]] = False
+    k, r = admm_iterate_cuda(zero, *args), admm_iterate_reference(zero, *args)
+    d = admm_iterate_reference(zero, *(a.double() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    assert bool((k[4][run] == 20).all()) and bool((r[4][run] == 20).all())
+    for kt, rt, dt in zip(k[:3], r[:3], d[:3]):
+        floor = float((rt.double() - dt).abs().max())
+        scale = max(1.0, float(dt.abs().max()))
+        assert float((kt - rt).abs().max()) <= ITER_TOL * scale + 2 * floor
+    k, r = admm_iterate_cuda(prm, *args), admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *(a.double() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], r[3])
+    share = lambda a, b: float((a[4] == b[4]).float().mean())
+    assert share(k, r) >= 0.995 or share(k, d) >= share(r, d) - 0.005
+
+
+def test_shared_factors_past_the_kernel_run_the_torch_loop(dev):
+    """Shared factors at n = m = 160 (past the shared kernel's MAX_DIM) on
+    backend "cuda" with CUDA tensors: the torch shared loop runs on the
+    card, nothing is launched, and statuses and iteration counts equal
+    backend "torch"'s."""
+    from chip_smoke import shared_route_problem
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_kernel_fits
+
+    qp = qp_from_numpy(shared_route_problem(), dev, torch.float32)
+    assert not shared_kernel_fits(160, 160, 8)
+    f = qp_factorize(qp._replace(q=qp.q[:1], l=qp.l[:1], u=qp.u[:1]))
+    f = type(f)(*(a[0] for a in f))
+    admm_iterate_cuda.launches = admm_iterate_cuda_shared.launches = 0
+    falls = qsolver.shared_fallthroughs
+    k = solve_qp_batch(qp, QPSolverParams(backend="cuda", polish=False), factors=f)
+    assert admm_iterate_cuda.launches == admm_iterate_cuda_shared.launches == 0
+    assert qsolver.shared_fallthroughs == falls + 1
+    r = solve_qp_batch(qp, QPSolverParams(backend="torch", polish=False), factors=f)
+    assert torch.equal(k.status, r.status) and torch.equal(k.iters, r.iters)
+    assert bool((k.status == 0).all())
