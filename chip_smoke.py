@@ -23,7 +23,15 @@ kernels:
   config 5, on-device protocol): B = 64 flat SE(2) x R^2 collocation OCPs
   on Mesh.uniform(3, 5) (NLP n = m = 112) solved in one lockstep SQP,
   every subproblem batch (QP n = 112, m = 224) through the per-problem
-  kernel, then the rescue pass for the tail.
+  kernel, then the rescue pass for the tail;
+- the same fleet with mesh refinement (the reference's
+  examples/ocp_se2_nlp.cpp:47-91): solve_ocp_flat_batch from
+  Mesh.uniform(3, 5), each member starting from (identity, (1, 0)), every
+  pass's and every rescue's subproblems through the per-problem kernel
+  (the refined passes' on its streaming route);
+- examples/ocp_se2_nlp.py's OCP through solve_ocp (B = 1) and
+  examples/ocp_se2_qp.py's QP through ocp_to_qp, solve_qp and
+  qpsol_to_ocpsol.
 
 Phases:
 
@@ -59,7 +67,13 @@ Phases:
      times, a synchronised split of one lockstep iteration, the kernel held
      against its plain version on the first subproblem batch, the first
      iterations again on the torch loop, and the single-problem form on
-     one member;
+     one member; ocp-refine: per pass the mesh, Optimal shares, launches
+     and stage times, each pass's error estimate against its float64
+     recomputation, the Optimal share after each rescue against the JAX
+     package's, the final error and float64 KKT, the kernel held against
+     its plain version on the second pass's first subproblem batch;
+     ocp-solve and ocp-qp: the single OCP's passes against the JAX
+     package's and its start, the QP's x(t) against the torch loop's;
   6. a JSON line of the kernels (with each one's bound on this card, its
      launches on each path and the shapes it was held at), the card's name
      and power limit, then the result line.
@@ -97,7 +111,7 @@ ASIF_B = 256  # the bench's default fleet
 ASIF_MPC_K = 30
 ASIF_DT = 0.025
 ASIF_WARM = 20  # 40 before the EKF and output-feedback phases joined the smoke
-ASIF_STEPS = 40
+ASIF_STEPS = 20  # 40 before the refinement phases joined the smoke
 ASIF_PLAIN_STEPS = 5
 ASIF_T = 2.5
 
@@ -110,7 +124,7 @@ EKF_CHECK_STEPS = 10
 EKF_CPU_STEPS = 3
 
 # examples/output_feedback_vehicle.py's loop, OF_STEPS of its 800 steps
-OF_STEPS = 40
+OF_STEPS = 20  # 40 before the refinement phases joined the smoke
 OF_PLAIN_STEPS = 5
 OF_KERNEL_STEPS = 10
 OF_DT = 0.025
@@ -136,6 +150,56 @@ OCP_ROUTE_B = 4
 # the same protocol; python3 ocp_sweep_jax.py): 100 % before and after rescue
 OCP_JAX_OPTIMAL = 1.0
 OCP_TOL = 1e-4
+# the fleet refinement (BASELINE config 5 with refinement: the reference's
+# examples/ocp_se2_nlp.cpp:47-91 on the sweep's family) and the single
+# SE(2) OCP: from Mesh.uniform(3, 5), at most 3 passes, tf guess 5, to a
+# dynamics error of 1e-4 for the single OCP and 1e-3 for the fleet: at 1e-4
+# the JAX package's own f32 fleet ends its 3 passes at 3.44e-4 (the
+# fleet-max error stalls on the first interval, where the hardest members
+# saturate |u| <= 1)
+OCP_TARGET_ERR = 1e-4
+OCP_FLEET_TARGET_ERR = 1e-3
+OCP_REFINE_ITER = 3
+OCP_TF_GUESS = 5.0
+# the fleet starts at rest on the screw's speeds of examples/ocp_se2_nlp.py,
+# (1, 0), not on its own screw: the sweep's start makes each member's
+# optimum the screw itself, e(t) = t vel in the flat coordinates, which the
+# start mesh already holds to rounding (the JAX package's f32 fleet ends in
+# one pass, fleet-max error 3.5e-6), so nothing would refine
+OCP_REFINE_START = (1.0, 0.0)
+# the JAX package's readings on the same velocities, problems and protocol
+# (f32, CPU, "xla"; python3 ocp_sweep_jax.py --refine): the fleet's Optimal
+# share after rescue and mesh on each pass (1 of 64 rescued on pass 0), the
+# per-interval fleet-max errors of each pass that refined; the single OCP's
+# pass count.  The fleet-max errors follow the SQP's f32 tolerance in one
+# member's converged point: on the same first pass JAX reads 3.9e-4 on the
+# second interval (member 15, Optimal at KKT 7.9e-5) and the port's route
+# through admm_problem's plain version 9.8e-6 (CPU), so the two refine
+# other intervals and take 2 and 3 passes.  The smoke prints the passes
+# beside JAX's and holds each pass's error estimate to its float64
+# recomputation on the CPU instead.
+OCP_JAX_REFINE_OPTIMAL = (1.0, 1.0, 1.0)
+OCP_JAX_REFINE_MESHES = (((5, 0.0), (5, 1 / 3), (5, 2 / 3)), ((8, 0.0), (7, 1 / 3), (5, 2 / 3)),
+                         ((10, 0.0), (7, 1 / 3), (5, 2 / 3)))
+OCP_JAX_REFINE_ERRS = ((2.1074365358799696e-3, 3.939935122616589e-4, 2.8927004677825607e-5),
+                       (1.1823103995993733e-3, 7.432830170728266e-5, 1.6556035916437395e-5))
+# the card's f32 error estimate against the f64 one on the same
+# trajectories, per interval (the CPU's f32 estimate lands within 6.9e-8)
+OCP_REFINE_ERR_ATOL, OCP_REFINE_ERR_RTOL = 1e-6, 1e-3
+OCP_JAX_SOLVE_PASSES = 2
+# the second pass's subproblem on JAX's refined mesh (3 intervals, 20
+# points): QP n = 147, m = 294, past the per-problem kernel's shared
+# memory, so streamed (the card tests' shape)
+OCP_REFINED_QP_SHAPE = (147, 294)
+# examples/ocp_se2_qp.py's default, and its solver settings (max_iter 20000,
+# polish) at eps 1e-3 in place of its 1e-6: the example runs float64, and
+# on this QP float32 ADMM stalls at residuals of ~3e-4 (primal) and ~1e-3
+# (dual) on both routes (the equality rows' rho of 100 scales each
+# iteration's rounding into y), so at eps 1e-4 and below it ends
+# MaxIterations after 20000 iterations; at 1e-3 it stops and the polish
+# lands within 1.3e-7 of the float64 eps-1e-6 solution (CPU readings)
+OCP_QP_IVALS = 10
+OCP_QP_EPS = 1e-3
 # step 0: a shared-factor batch past the shared kernel's shapes
 SHARED_ROUTE_N = 160
 SHARED_ROUTE_B = 4
@@ -150,50 +214,71 @@ def ocp_sweep_velocities(B_=OCP_B, seed=SEED):
     return np.stack([1.0 + 0.3 * a, np.zeros(B_), 0.5 + 0.2 * b], axis=1)
 
 
-def ocp_sweep_problem(mesh, dtype=torch.float32, device="cuda"):
-    """benchmarks/ocp_se2.py:112-139 through the port's API: the flat NLP of
-    one tracked screw velocity ``vel`` (3,) on ``mesh``, as ``make(vel)``
-    for ``solve_nlp_sqp_batch``.  X = SE(2) x R^2 (the speeds along the
+def se2_tracking(vel):
+    """examples/ocp_se2.hpp's vehicle tracking the screw ``vel`` (3,):
+    ``(X, U, f, g)`` with X = SE(2) x R^2 (pose and the speeds along the
+    screw), U = R^2 (their rates), f the body velocity and g the running
+    cost |x (-) xdes(t)|^2/2 + |u|^2/2 against xdes(t) = (exp(t vel),
+    speeds)."""
+    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
+
+    X = Bundle(SE2, Rn(2))
+    speeds = torch.stack([vel[0], vel[2]])
+
+    def f(t, x, u):
+        return torch.stack([x[4], torch.zeros_like(x[4]), x[5], u[0], u[1]])
+
+    def g(t, x, u):
+        e = X.rminus(x, torch.cat([SE2.exp(t * vel), speeds]))
+        # 1-element: a 0-d float32 tensor times a Python scalar gets a
+        # float64 tangent in torch's forward mode
+        return 0.5 * torch.stack([e @ e + u @ u])
+
+    return X, Rn(2), f, g
+
+
+def ocp_sweep_flat(dtype=torch.float32, device="cuda", start=None):
+    """benchmarks/ocp_se2.py:112-139 through the port's API: the flat OCP
+    of one tracked screw velocity ``vel`` (3,), as ``make_flat(vel)`` for
+    ``solve_ocp_flat_batch``.  X = SE(2) x R^2 (the speeds along the
     screw), U = R^2; cost tf + q with q the integral of |x (-) xdes|^2/2 +
     |u|^2/2, |u| <= 1, tf = 5, x0 = (identity, the screw's speeds);
-    flattened about the identity and u = 0.01."""
-    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
-    from smooth_feedback_tpu_torch.ocp import OCP, flatten_ocp, ocp_to_nlp
+    flattened about the identity and u = 0.01.  ``start`` (2,) fixes x0's
+    speeds instead (the refinement fleet's start, OCP_REFINE_START)."""
+    from smooth_feedback_tpu_torch.ocp import OCP, flatten_ocp
 
-    X, U = Bundle(SE2, Rn(2)), Rn(2)
     kw = dict(dtype=dtype, device=device)
     bound_u = torch.ones(2, **kw)
     ends = torch.tensor([5.0, 0, 0, 0, 0, 0], **kw)
-    x_nom, u_nom = X.identity(**kw), torch.full((2,), 0.01, **kw)
+    u_nom = torch.full((2,), 0.01, **kw)
+    fixed = None if start is None else torch.tensor(start, **kw)
 
-    def make(vel):
-        speeds = torch.stack([vel[0], vel[2]])
-
-        def xdes(t):
-            return torch.cat([SE2.exp(t * vel), speeds])
-
-        def f(t, x, u):
-            return torch.stack([x[4], torch.zeros_like(x[4]), x[5], u[0], u[1]])
-
-        def g(t, x, u):
-            e = X.rminus(x, xdes(t))
-            # 1-element: a 0-d float32 tensor times a Python scalar gets a
-            # float64 tangent in torch's forward mode
-            return 0.5 * torch.stack([e @ e + u @ u])
-
+    def make_flat(vel):
+        X, U, f, g = se2_tracking(vel)
+        x0_speeds = torch.stack([vel[0], vel[2]]) if fixed is None else fixed
+        x_nom = X.identity(**kw)
         ocp = OCP(
             X=X, U=U,
             theta=lambda tf, x0, xf, q: tf + q[0],
             f=f, g=g,
             cr=lambda t, x, u: u, crl=-bound_u, cru=bound_u,
             ce=lambda tf, x0, xf, q: torch.cat(
-                [tf[None], X.log(x0) - torch.cat([torch.zeros_like(vel), speeds])]
+                [tf[None], X.log(x0) - torch.cat([torch.zeros_like(vel), x0_speeds])]
             ),
             cel=ends, ceu=ends,
         )
-        return ocp_to_nlp(flatten_ocp(ocp, lambda t: x_nom, lambda t: u_nom), mesh)
+        return flatten_ocp(ocp, lambda t: x_nom, lambda t: u_nom)
 
-    return make
+    return make_flat
+
+
+def ocp_sweep_problem(mesh, dtype=torch.float32, device="cuda", start=None):
+    """The flat NLP of :func:`ocp_sweep_flat`'s OCP on ``mesh``, as
+    ``make(vel)`` for ``solve_nlp_sqp_batch``."""
+    from smooth_feedback_tpu_torch.ocp import ocp_to_nlp
+
+    make_flat = ocp_sweep_flat(dtype, device, start)
+    return lambda vel: ocp_to_nlp(make_flat(vel), mesh)
 
 
 # examples/pid_se2.py
@@ -1845,15 +1930,18 @@ def ocp_sweep_rescue(make, vels, sol, prm, z0):
                              adaptive_rho=True, stall_scale=3)
 
 
-def ocp_kkt_f64(vels, sol, mesh=OCP_MESH):
+def ocp_kkt_f64(vels, sol, mesh=None, start=None):
     """Every member's KKT residual recomputed in float64 on the CPU at the
-    returned point (x, lam, z = zu - zl): max of |grad f + J' lam + z|_inf
-    and the largest bound violation."""
+    returned point (x, lam, z = zu - zl) of the NLP on ``mesh`` (a
+    ``Mesh``; the sweep's ``Mesh.uniform(*OCP_MESH)`` by default; ``start``
+    as :func:`ocp_sweep_flat`'s): max of |grad f + J' lam + z|_inf and the
+    largest bound violation."""
     from torch.func import grad, jacrev, vmap
     from smooth_feedback_tpu_torch.ocp.collocation import Mesh
 
-    make = ocp_sweep_problem(Mesh.uniform(*mesh), torch.float64, "cpu")
-    d = lambda a: a.detach().to("cpu", torch.float64)
+    make = ocp_sweep_problem(Mesh.uniform(*OCP_MESH) if mesh is None else mesh, torch.float64,
+                             "cpu", start)
+    d = lambda a: torch.as_tensor(a).detach().to("cpu", torch.float64)
     th, x, lam, z = d(vels), d(sol.x), d(sol.lam), d(sol.zu) - d(sol.zl)
     gval = vmap(lambda t, xx: make(t).g(xx))(th, x)
     gr = vmap(lambda t, xx: grad(make(t).f)(xx))(th, x)
@@ -2178,6 +2266,397 @@ def ocp_single_phase(dev, sweep_sol):
             f"single form launches {counts}")
 
 
+def ocp_refine_params(backend, target_err=OCP_FLEET_TARGET_ERR):
+    """The mesh-refinement protocol on the sweep's SQP (``ocp_sweep_params``):
+    refine to a dynamics error of ``target_err`` (the fleet's by default)
+    in at most OCP_REFINE_ITER passes, tf guess 5, the driver's rescue and
+    fail_fast on."""
+    from smooth_feedback_tpu_torch.ocp import SolveOCPParams
+
+    return SolveOCPParams(target_err=target_err, max_refine_iter=OCP_REFINE_ITER,
+                          tf_guess=OCP_TF_GUESS, sqp=ocp_sweep_params(backend), rescue=True,
+                          fail_fast=True)
+
+
+def ocp_refine_run(dev, backend="cuda", dtype=torch.float32, B_=OCP_B, sync=None, mesh=OCP_MESH):
+    """solve_ocp_flat_batch on the sweep's family (``ocp_sweep_flat``, the
+    sweep's B velocities, x0's speeds OCP_REFINE_START) from
+    ``Mesh.uniform(*mesh)`` with
+    :func:`ocp_refine_params`, through the driver's own stage hook (the
+    public entry point takes none).  ``sync`` runs before each stage's
+    clock is read.  Returns ``((nlpsol, mesh, info), passes, make_flat,
+    vels)``; each pass's record holds its mesh, the statuses, SQP and
+    inner iterations and launch counts after its solve and after its rescue
+    (counts set to 0 at the pass's start and after its solve), the number
+    rescued, the per-interval fleet-max errors, the transfer's warm start
+    and mesh, and each stage's seconds."""
+    from smooth_feedback_tpu_torch.ocp import solve as osolve
+    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
+
+    sync = sync or (lambda: None)
+    make_flat = ocp_sweep_flat(dtype, dev, OCP_REFINE_START)
+    vels = torch.as_tensor(ocp_sweep_velocities(B_), dtype=dtype, device=dev)
+    passes = []
+
+    def trace(stage, info):
+        sync()
+        now = time.perf_counter()
+        if stage == "start":
+            passes.append({"mesh": info["mesh"], "t": now})
+            reset_counts()
+            return
+        p = passes[-1]
+        p[stage + "_s"], p["t"] = now - p["t"], now
+        if stage in ("solve", "rescue"):
+            sol = info["nlpsol"]
+            p[stage] = dict(status=sol.status.clone(), iters=sol.iters.clone(),
+                            qp_iters=sol.qp_iters.clone(), launches=read_counts())
+            p["n_rescued"] = info.get("n_rescued", 0)
+            p["sol"] = sol
+            reset_counts()
+        elif stage == "error":
+            p["errs"] = info["errs"].amax(dim=0).tolist()
+        else:
+            p.update(mesh_new=info["mesh_new"], z=info["z"], lam=info["lam"])
+
+    out = osolve._solve_ocp_flat_batch_impl(make_flat, vels, Mesh.uniform(*mesh),
+                                            ocp_refine_params(backend), dtype, dev, trace)
+    return out, passes, make_flat, vels
+
+
+def ocp_refine_errors_f64(vels, sol, mesh):
+    """The fleet-max per-interval dynamics errors of the members'
+    solutions ``sol`` on ``mesh`` (the refinement fleet's OCPs), evaluated
+    as the driver does, in float64 on the CPU."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch.nlp import NLPSolution
+    from smooth_feedback_tpu_torch.ocp import nlpsol_to_ocpsol
+    from smooth_feedback_tpu_torch.ocp.collocation import mesh_dyn_error
+
+    make_flat = ocp_sweep_flat(torch.float64, "cpu", OCP_REFINE_START)
+    d = lambda a: a.detach().to("cpu", torch.float64 if a.is_floating_point() else a.dtype)
+    hi = mesh.increase_degrees()
+
+    def one(th, s):
+        flat = make_flat(th)
+        o = nlpsol_to_ocpsol(flat, mesh, s)
+        return mesh_dyn_error(hi, flat.f, 0.0, o.tf, o.x, o.u)
+
+    return vmap(one)(d(vels), NLPSolution(*(d(a) for a in sol))).amax(dim=0)
+
+
+def refine_branch(e, K, target):
+    """What ``Mesh.refine_errors`` does to an interval of degree K with
+    error e: None (kept) or the degree it aims at."""
+    import math
+
+    return None if e <= target else K + int(round(math.log(e / target) / math.log(K) + 1))
+
+
+def ocp_refine_phase(dev):
+    """The fleet refinement at B = 64, float32, every SQP subproblem of
+    every pass and of its rescue through admm_problem.  Requires, against
+    the JAX package's run on the same velocities and protocol: each pass's
+    Optimal share after rescue at least JAX's; each pass's error estimate
+    within OCP_REFINE_ERR_ATOL + OCP_REFINE_ERR_RTOL of its float64
+    recomputation on the CPU; at least one refinement and at most
+    OCP_REFINE_ITER passes, ending at a fleet-max error <=
+    OCP_FLEET_TARGET_ERR (the pass count itself follows rounding, see
+    OCP_JAX_REFINE_ERRS, and is printed beside JAX's with the intervals
+    that took another branch); the returned mesh the one the solution was
+    solved on; every Optimal member's KKT residual, recomputed in float64
+    on the final mesh, <= OCP_TOL; each pass's launches equal to its
+    lockstep iterations, admm_shared never.  Returns the launches (solves,
+    rescues), the passes' records and the velocities."""
+    from smooth_feedback_tpu_torch.ocp import nlp_layout
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import problem_route
+
+    t0 = time.perf_counter()
+    (sol, mesh, info), passes, make_flat, vels = ocp_refine_run(dev, sync=torch.cuda.synchronize)
+    total = time.perf_counter() - t0
+    flat0 = make_flat(vels[0])
+    launches = {"ocp-refine": 0, "ocp-refine rescue": 0}
+    good_launches = True
+    for k, p in enumerate(passes):
+        lay = nlp_layout(flat0, p["mesh"])
+        n, m = lay.n, lay.m + lay.n
+        s0, s1 = p["solve"], p["rescue"]
+        lockstep = int(s0["iters"].max())
+        opt0, opt1 = (float((s["status"] == 0).float().mean()) for s in (s0, s1))
+        bar = OCP_JAX_REFINE_OPTIMAL[k] if k < len(OCP_JAX_REFINE_OPTIMAL) else 1.0
+        err = max(p["errs"]) if "errs" in p else float("nan")
+        launches["ocp-refine"] += s0["launches"]["admm_problem"]
+        launches["ocp-refine rescue"] += s1["launches"]["admm_problem"]
+        good_launches = (good_launches and s0["launches"] == {"admm_shared": 0, "admm_problem": lockstep}
+                         and s1["launches"]["admm_shared"] == 0)
+        phase("ocp-refine", f"pass {k}: mesh {p['mesh'].N_ivals} intervals / {p['mesh'].N_colloc} "
+                            f"points (NLP n={lay.n}, m={lay.m}; QP n={n}, m={m}, {problem_route(n, m)[0]} "
+                            f"route); Optimal {opt0 * 100:.3f}% after the solve, {opt1 * 100:.3f}% after "
+                            f"rescuing {p['n_rescued']} (JAX, f32 CPU: {bar * 100:.3f}%); SQP iterations "
+                            f"p50 {pct(s0['iters'], 50):.0f} max {lockstep}, qp_iters p50 "
+                            f"{pct(s0['qp_iters'], 50):.0f} max {int(s0['qp_iters'].max())}; fleet-max "
+                            f"dynamics error {err:.3e}; launches: solve {s0['launches']} in {lockstep} "
+                            f"lockstep iterations, rescue {s1['launches']}; seconds: solve "
+                            f"{p['solve_s']:.3f}, rescue {p['rescue_s']:.3f}, error estimate "
+                            f"{p.get('error_s', float('nan')):.3f}, transfer "
+                            f"{p.get('transfer_s', float('nan')):.3f}")
+        require(opt1 >= bar, f"pass {k}: Optimal share after rescue {opt1:.5f} < JAX's {bar}")
+        if "errs" in p:
+            e64 = ocp_refine_errors_f64(vels, p["sol"], p["mesh"])
+            de = (torch.tensor(p["errs"], dtype=torch.float64) - e64).abs()
+            est_ok = bool((de <= OCP_REFINE_ERR_ATOL + OCP_REFINE_ERR_RTOL * e64).all())
+            phase("ocp-refine", f"pass {k}: per-interval fleet-max errors {[f'{e:.4e}' for e in p['errs']]}, "
+                                f"float64 on the CPU {[f'{e:.4e}' for e in e64.tolist()]}: largest "
+                                f"difference {float(de.max()):.3e} (bound {OCP_REFINE_ERR_ATOL:g} + "
+                                f"{OCP_REFINE_ERR_RTOL:g} x f64)")
+            require(est_ok, f"pass {k}: the error estimate differs from its float64 recomputation")
+    kkt64 = ocp_kkt_f64(vels, sol, mesh, OCP_REFINE_START)
+    is_opt = (sol.status == 0).cpu()
+    worst64 = float(kkt64[is_opt].max()) if bool(is_opt.any()) else 0.0
+    jax_final = OCP_JAX_REFINE_MESHES[-1]
+    same_mesh = len(mesh.intervals) == len(jax_final) and all(
+        K == Kj and abs(t - tj) <= 1e-12 for (K, t), (Kj, tj) in zip(mesh.intervals, jax_final))
+    phase("ocp-refine", f"{len(passes)} passes (JAX {len(OCP_JAX_REFINE_MESHES)}), errors "
+                        f"{[float(f'{e:.4g}') for e in info.errors]} (target {OCP_FLEET_TARGET_ERR:g}), "
+                        f"{total:.3f} s in all: {OCP_B / total:.3f} OCP solves/s; final mesh "
+                        f"{[(K, round(t, 6)) for K, t in mesh.intervals]}; JAX's "
+                        f"{[(K, round(t, 6)) for K, t in jax_final]}: equal {same_mesh}; Optimal "
+                        f"members' KKT recomputed in float64 on the final mesh: max {worst64:.3e} (tol "
+                        f"{OCP_TOL:g}); statuses {sol.status.tolist()}")
+    if not same_mesh:
+        for k, p in enumerate(passes[:-1]):
+            if k >= len(OCP_JAX_REFINE_ERRS):
+                break
+            tgt = 0.1 * OCP_FLEET_TARGET_ERR
+            for i, ((K, _), e, ej) in enumerate(zip(p["mesh"].intervals, p["errs"], OCP_JAX_REFINE_ERRS[k])):
+                if refine_branch(e, K, tgt) != refine_branch(ej, K, tgt):
+                    phase("ocp-refine", f"pass {k}, interval {i} (degree {K}): port error {e:.6e} -> "
+                                        f"{refine_branch(e, K, tgt)}, JAX {ej:.6e} -> "
+                                        f"{refine_branch(ej, K, tgt)} (threshold {tgt:g})")
+    require(2 <= len(passes) <= OCP_REFINE_ITER, f"{len(passes)} passes")
+    require(info.errors[-1] <= OCP_FLEET_TARGET_ERR, f"final fleet-max error {info.errors[-1]:.3e}")
+    require(mesh == info.meshes[-1] and nlp_layout(flat0, mesh).n == sol.x.shape[1],
+            "the returned mesh is not the one the solution was solved on")
+    require(worst64 <= OCP_TOL, f"an Optimal member's float64 KKT residual is {worst64:.3e}")
+    require(good_launches, "a pass's launches differ from its lockstep iterations, or admm_shared ran")
+    return launches, passes, vels
+
+
+def ocp_refine_kernel_phase(dev, passes, vels):
+    """admm_problem against its plain version on the refined pass's first
+    lockstep subproblem batch (B = 64, the streaming route), rebuilt from
+    the transfer's warm start: the launch layout the built library takes
+    there beside problem_route's; FIXED_ITERS iterations with every
+    tolerance 0 judged relative to each member's scale
+    (relative_fixed_check), and the path's own solve (compare_with_plain,
+    noisy: statuses and counts against an f64 run), then its time against
+    the plain version's and the bound.  Returns the worst absolute error
+    and the shape."""
+    import ctypes
+
+    from smooth_feedback_tpu_torch import _build
+    from smooth_feedback_tpu_torch._precision import ieee_f32_matmul
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda, admm_iterate_reference, per_problem_kernel_args
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+    from smooth_feedback_tpu_torch.solvers import sqp
+
+    p = passes[0]
+    make = ocp_sweep_problem(p["mesh_new"], torch.float32, dev, OCP_REFINE_START)
+    prm = dataclasses.replace(ocp_sweep_params("cuda"), max_iter=1)
+    captured = {}
+    with ieee_f32_matmul():
+        sqp._solve_nlp_sqp_batch_impl(make, vels, p["z"], prm, p["lam"],
+                                      lambda s, i: captured.update(i) if s == "qp" else None)
+    qp, ws, qprm = captured["qp"], captured["ws"], prm.qp
+    n, m, B_ = qp.A.shape[-1], qp.A.shape[-2], qp.A.shape[0]
+    smem = ctypes.c_int(0)
+    resident = _build.load().admm_problem_route(n, m, ck.PROBLEM_WARPS, ctypes.byref(smem))
+    route = "resident" if resident else "streaming"
+    phase("layout", f"admm_problem at the refined pass's n={n}, m={m}: {route} route, {smem.value} "
+                    f"bytes of shared memory a block (problem_route: {ck.problem_route(n, m)})")
+    require((route, smem.value) == ck.problem_route(n, m), "problem_route does not mirror the library")
+    label = f"ocp-refine ({n}, {m}) B={B_}, pass 1, lockstep iteration 1"
+    warm = per_problem_kernel_args(qp, None, ws, qprm)
+    worst = relative_fixed_check(admm_iterate_cuda, warm, qprm, FIXED_ITERS, label)
+    err, k = compare_with_plain(f"{label}, warm solve", admm_iterate_cuda, qprm, warm, qp, noisy=True)
+    row = (time_ms(lambda: admm_iterate_cuda(qprm, *warm), 5),
+           time_ms(lambda: admm_iterate_reference(qprm, *warm), 1), *bound(warm, k, qprm))
+    single = time_single_ms(lambda: admm_iterate_cuda(qprm, *warm), 5)
+    phase("kernel", f"{label}, warm solve: kernel {row[0]:.4f} ms (mean of back-to-back calls) "
+                    f"[{single:.4f} ms, median of single launches], plain {row[1]:.4f} ms, mean "
+                    f"{float(k[4].float().mean()):.1f} iterations; bound {row[2]:.6f} ms ({row[3]}, "
+                    f"{100 * row[2] / row[0]:.2f}%)")
+    return max(worst, err), (n, m)
+
+
+def ocp_example(dtype=torch.float32, device="cuda"):
+    """examples/ocp_se2_nlp.py's OCP through the port's API: X = SE(2) x
+    R^2, U = R^2, vel (1, 0, 0.5), cost tf + the integral of |x (-) xdes|^2/2
+    + |u|^2/2, |u| <= 1, tf = 5 and x0 = (identity, (1, 0)) fixed by the end
+    constraints.  Returns ``(ocp, xl, ul)``: the OCP and its nominal, the
+    identity and u = 0.01."""
+    from smooth_feedback_tpu_torch.ocp import OCP
+
+    kw = dict(dtype=dtype, device=device)
+    X, U, f, g = se2_tracking(torch.tensor([1.0, 0.0, 0.5], **kw))
+    bound_u = torch.ones(2, **kw)
+    ends = torch.tensor([5.0, 0.0, 0.0, 0.0, 1.0, 0.0], **kw)
+    ocp = OCP(
+        X=X, U=U,
+        theta=lambda tf, x0, xf, q: tf + q[0],
+        f=f, g=g,
+        cr=lambda t, x, u: u, crl=-bound_u, cru=bound_u,
+        ce=lambda tf, x0, xf, q: torch.cat([tf[None], X.log(x0)]),
+        cel=ends, ceu=ends,
+    )
+    x_nom, u_nom = X.identity(**kw), torch.full((2,), 0.01, **kw)
+    return ocp, (lambda t: x_nom), (lambda t: u_nom)
+
+
+def ocp_solve_run(dev, backend="cuda", dtype=torch.float32):
+    """solve_ocp (flatten, refine, unflatten) on :func:`ocp_example` with
+    the refinement protocol.  Returns ``(sol, mesh, info, x(0))``."""
+    from smooth_feedback_tpu_torch.ocp import solve_ocp
+    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
+
+    ocp, xl, ul = ocp_example(dtype, dev)
+    sol, mesh, info = solve_ocp(ocp, xl, ul, Mesh.uniform(*OCP_MESH),
+                                ocp_refine_params(backend, OCP_TARGET_ERR), dtype=dtype, device=dev)
+    return sol, mesh, info, sol.x(torch.zeros((), dtype=dtype, device=dev))
+
+
+def ocp_solve_phase(dev):
+    """The single-problem driver on examples/ocp_se2_nlp.py's OCP, f32 on
+    the card: Optimal in JAX's pass count (f32, CPU, the same protocol),
+    the final error <= OCP_TARGET_ERR, x(0) on the group within 1e-4 of the
+    fixed initial pose and velocity, one admm_problem launch at B = 1 per
+    SQP iteration.  Returns the launches and the subproblems' shapes."""
+    from smooth_feedback_tpu_torch.ocp import flatten_ocp, nlp_layout
+
+    reset_counts()
+    t0 = time.perf_counter()
+    sol, mesh, info, x0 = ocp_solve_run(dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    want = torch.tensor([0.0, 0.0, 1.0, 0.0, 1.0, 0.0], dtype=x0.dtype, device=x0.device)
+    dx0 = float((x0 - want).abs().max())
+    flat = flatten_ocp(*ocp_example(torch.float32, dev))
+    shapes = [(lay.n, lay.m + lay.n) for lay in (nlp_layout(flat, q) for q in info.meshes)]
+    phase("ocp-solve", f"solve_ocp on examples/ocp_se2_nlp.py's OCP, float32: status "
+                       f"{info.status.name}, {len(info.meshes)} passes (JAX, f32 CPU: "
+                       f"{OCP_JAX_SOLVE_PASSES}), meshes {[(q.N_ivals, q.N_colloc) for q in info.meshes]}, "
+                       f"SQP iterations {info.nlp_iters}, errors "
+                       f"{[float(f'{e:.4g}') for e in info.errors]}; QP shapes {shapes}; x(0) "
+                       f"{x0.tolist()}, "
+                       f"{dx0:.3e} from the fixed start; launches {counts}; {secs:.3f} s")
+    require(info.status == 0, "solve_ocp did not end Optimal")
+    require(len(info.meshes) == OCP_JAX_SOLVE_PASSES, "solve_ocp's pass count differs from JAX's")
+    require(info.errors[-1] <= OCP_TARGET_ERR, f"solve_ocp's final error {info.errors[-1]:.3e}")
+    require(dx0 <= 1e-4, f"x(0) lies {dx0:.3e} from the fixed initial state")
+    require(counts == {"admm_shared": 0, "admm_problem": sum(info.nlp_iters)},
+            f"solve_ocp launches {counts} != {sum(info.nlp_iters)} SQP iterations")
+    return counts, shapes
+
+
+def ocp_qp_problem(dtype=torch.float32, device="cuda", n_ival=OCP_QP_IVALS):
+    """examples/ocp_se2_qp.py's problem through the port's API: the SE(2) x
+    R^2 OCP with cost the integral alone and x0 = (identity, (1, 0)),
+    linearized about the desired screw on Mesh.uniform(n_ival, 5, 5, 5),
+    tf = 5.  Returns ``(ocp, mesh, tf, xl, ul, dxl)``."""
+    from smooth_feedback_tpu_torch.groups import SE2
+    from smooth_feedback_tpu_torch.ocp import OCP
+    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
+
+    kw = dict(dtype=dtype, device=device)
+    vel = torch.tensor([1.0, 0.0, 0.5], **kw)
+    X, U, f, g = se2_tracking(vel)
+    bound_u = torch.ones(2, **kw)
+    ends = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0], **kw)
+    speeds = torch.stack([vel[0], vel[2]])
+    xdes = lambda t: torch.cat([SE2.exp(t * vel), speeds])
+    ocp = OCP(
+        X=X, U=U,
+        theta=lambda tf, x0, xf, q: q[0],
+        f=f, g=g,
+        cr=lambda t, x, u: u, crl=-bound_u, cru=bound_u,
+        ce=lambda tf, x0, xf, q: X.log(x0),
+        cel=ends, ceu=ends,
+    )
+    dxl = torch.cat([vel, torch.zeros(2, **kw)])
+    return (ocp, Mesh.uniform(n_ival, 5, Kmin=5, Kmax=5), 5.0, xdes,
+            lambda t: torch.zeros(2, **kw), lambda t: dxl)
+
+
+def ocp_qp_params(backend, polish=True):
+    """The example's QP parameters (max_iter 20000, polish) at eps OCP_QP_EPS."""
+    from smooth_feedback_tpu_torch.qp import QPSolverParams
+
+    return QPSolverParams(eps_abs=OCP_QP_EPS, eps_rel=OCP_QP_EPS, max_iter=20000, polish=polish,
+                          backend=backend)
+
+
+def ocp_qp_run(dev, backend, dtype=torch.float32):
+    """ocp_to_qp, solve_qp with :func:`ocp_qp_params` on ``backend``,
+    qpsol_to_ocpsol, and x(t) at the example's 6 sample times.  Returns
+    ``(sol, xs, qp)``."""
+    from smooth_feedback_tpu_torch.ocp import ocp_to_qp, qpsol_to_ocpsol
+    from smooth_feedback_tpu_torch.qp import solve_qp
+
+    ocp, mesh, tf, xl, ul, dxl = ocp_qp_problem(dtype, dev)
+    qp = ocp_to_qp(ocp, mesh, tf, xl, ul, dxl, dtype=dtype, device=dev)
+    sol = solve_qp(qp, ocp_qp_params(backend))
+    osol = qpsol_to_ocpsol(ocp, mesh, sol, tf, xl, ul)
+    ts = torch.linspace(0.0, tf, 6, dtype=dtype, device=dev)
+    return sol, torch.stack([osol.x(t) for t in ts]), qp
+
+
+def ocp_qp_phase(dev):
+    """examples/ocp_se2_qp.py's round trip on the card: Optimal through one
+    admm_problem launch, and x(t) at the 6 sample times within 1e-4 of its
+    scale plus twice the f32 torch route's distance from the f64 one (the
+    measured f32 noise) of the same run on the torch loop.  Then the kernel
+    against its plain version on that launch's inputs (B = 1, the streaming
+    route), polish aside (the same float64 step on both routes): FIXED_ITERS
+    iterations with every tolerance 0 (relative_fixed_check) and the solve
+    itself (compare_with_plain: status and iteration count against the
+    plain version's and the f64 run's, the Optimal point re-checked in
+    f64).  Returns the launches, the QP's shape and the worst error."""
+    from smooth_feedback_tpu_torch.qp import QuadraticProgram, admm_iterate_cuda, per_problem_kernel_args
+
+    reset_counts()
+    t0 = time.perf_counter()
+    sol, xs, qp = ocp_qp_run(dev, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    sol_t, xs_t, _ = ocp_qp_run(dev, "torch")
+    sol_d, xs_d, _ = ocp_qp_run(dev, "torch", torch.float64)
+    dx = float((xs - xs_t).abs().max())
+    floor = float((xs_t.double() - xs_d).abs().max())
+    scale = max(1.0, float(xs_d.abs().max()))
+    n, m = sol.primal.shape[0], sol.dual.shape[0]
+    phase("ocp-qp", f"examples/ocp_se2_qp.py (n_ival {OCP_QP_IVALS}, QP n={n} m={m}, "
+                    f"eps {OCP_QP_EPS:g}): "
+                    f"status kernel {int(sol.status)}, torch {int(sol_t.status)}, f64 torch "
+                    f"{int(sol_d.status)}; iterations {int(sol.iters)}, {int(sol_t.iters)}, "
+                    f"{int(sol_d.iters)}; max |x_kernel(t) - x_torch(t)| at 6 times {dx:.3e} (f32 "
+                    f"torch - f64 torch {floor:.3e}, scale {scale:.3e}; bound 1e-4 x scale + 2 x "
+                    f"floor); launches {counts}; {secs:.3f} s")
+    require(int(sol.status) == 0 and int(sol_t.status) == 0, "the QP round trip is not Optimal")
+    require(counts == {"admm_shared": 0, "admm_problem": 1}, f"ocp-qp launches {counts}")
+    require(dx <= 1e-4 * scale + 2 * floor, "the kernel route's x(t) differs beyond the bound")
+    qp1 = QuadraticProgram(*(a[None] for a in qp))
+    qprm = ocp_qp_params("cuda", polish=False)
+    args = per_problem_kernel_args(qp1, None, None, qprm)
+    label = f"ocp-qp ({n}, {m}) B=1"
+    worst = relative_fixed_check(admm_iterate_cuda, args, qprm, FIXED_ITERS, label)
+    err, k = compare_with_plain(f"{label}, the path's solve before polish", admm_iterate_cuda, qprm,
+                                args, qp1)
+    require(int(k[4][0]) == int(sol.iters), "the checked solve is not the path's launch")
+    return counts, (n, m), max(worst, err)
+
+
 def shared_route_problem(n=SHARED_ROUTE_N, B_=SHARED_ROUTE_B, seed=SEED):
     """numpy ``(P, q, A, l, u)`` of a shared-factor batch (P and A with a
     leading axis of 1): P = M M'/n + I, A ~ N(0, 1/n), per-member q ~ N(0, 1)
@@ -2267,6 +2746,8 @@ def pid_spline_phase(dev):
 
 
 def main():
+    t_start = time.perf_counter()
+    mark = lambda what: phase("time", f"{what}: {time.perf_counter() - t_start:.1f} s since the start")
     card = device_phase()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2301,6 +2782,7 @@ def main():
                       f"{launches['admm_problem']} admm_problem in {FLEET_STEPS} steps; vehicle-asif "
                       f"{vcounts} in {ASIF_WARM + ASIF_STEPS} steps")
     entry_points_phase(dev)
+    mark("the control slices (condensed, fleet, vehicle-asif, entry points)")
 
     # the state-estimation slice: no kernel on the EKF fleets; the
     # output-feedback loop runs both its QPs through admm_problem
@@ -2315,6 +2797,7 @@ def main():
     rows["admm_problem"] = (max(rows["admm_problem"][0], err, worst_o), rows["admm_problem"][1])
     pid_spline_phase(dev)
     phase("launches", f"output-feedback {ofcounts} in {OF_STEPS} steps (2 QP solves a step)")
+    mark("the state-estimation slice (ekf-fleet, output-feedback, pid-spline)")
 
     # the NLP slice: every lockstep SQP subproblem through admm_problem
     ocounts, osol = ocp_sweep_phase(dev)
@@ -2324,20 +2807,34 @@ def main():
     # noise of a converged SQP), not counted as kernel error
     ocp_sweep_routes_phase(dev, osol)
     ocp_single_phase(dev, osol)
-    rows["admm_problem"] = (max(rows["admm_problem"][0], worst_c), rows["admm_problem"][1])
+    mark("the NLP slice (ocp-sweep)")
+
+    # the refinement slice: every pass's and every rescue's subproblems
+    # through admm_problem, the second pass's on the streaming route
+    rcounts, rpasses, rvels = ocp_refine_phase(dev)
+    worst_r, rshape = ocp_refine_kernel_phase(dev, rpasses, rvels)
+    scounts, sshapes = ocp_solve_phase(dev)
+    qcounts, qshape, worst_q = ocp_qp_phase(dev)
+    rows["admm_problem"] = (max(rows["admm_problem"][0], worst_c, worst_r, worst_q),
+                            rows["admm_problem"][1])
+    phase("launches", f"ocp-refine {rcounts}; ocp-solve {scounts}; ocp-qp {qcounts}")
+    mark("the refinement slice (ocp-refine, ocp-solve, ocp-qp)")
 
     by_path = {
         "admm_shared": {"condensed": launches["admm_shared"],
                         "vehicle-asif": vcounts["admm_shared"]},
         "admm_problem": {"per-member fleet": launches["admm_problem"],
                          "output-feedback": ofcounts["admm_problem"],
-                         "ocp-sweep": ocounts["admm_problem"]},
+                         "ocp-sweep": ocounts["admm_problem"], **rcounts,
+                         "ocp-solve": scounts["admm_problem"], "ocp-qp": qcounts["admm_problem"]},
     }
     shapes = {
         "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64"],
         "admm_problem": [f"B={FLEET_B} n=163 m=99", f"B={ASIF_B} n=3 m=53"]
                         + [f"B=1 (n, m)={k}" for k in orows]
-                        + [f"B={OCP_B} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]}"],
+                        + [f"B={OCP_B} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]}",
+                           f"B={OCP_B} n={rshape[0]} m={rshape[1]}"]
+                        + [f"B=1 n={n} m={m}" for n, m in sshapes + [qshape]],
     }
     kernels = []
     for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():

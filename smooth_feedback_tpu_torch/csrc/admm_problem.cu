@@ -339,21 +339,52 @@ __device__ __forceinline__ void gmem_rows(const float* __restrict__ M, const flo
   }
 }
 
-// out[c] = sum_r v[r] M[r, c] for c < cols: one thread per output column
+// out[c] = sum_r v[r] M[r, c] for c < cols: one thread per output column,
+// kColSums interleaved partial sums of the rows added pairwise at the end
+// (the resident route's column products likewise sum a warp's rows apiece,
+// then the warps').  One running sum over all m rows carries f32 rounding
+// that grows with m: at n = 147, m = 294 the iterates drifted twice as far
+// from a float64 run as the plain version's, the dual residual stayed above
+// an eps of 1e-6, and solves ran on to max_iter where float64 stops.  Four
+// sums follow float64 there as closely as eight, and keep the streaming
+// instantiation within its registers (eight spill: PERF.md).
+constexpr int kColSums = 4;
+
 template <int NV>
 __device__ __forceinline__ void gmem_cols(const float* __restrict__ M, const float* va,
                                           const float* vb, int rows, int cols, float* outa,
                                           float* outb, int tid, int nt) {
   for (int c = tid; c < cols; c += nt) {
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < rows; ++r) {
-      const float mk = __ldg(M + (size_t)r * cols + c);
-      a0 = fmaf(va[r], mk, a0);
-      if (NV == 2) a1 = fmaf(vb[r], mk, a1);
+    float a[kColSums], b[kColSums];
+#pragma unroll
+    for (int k = 0; k < kColSums; ++k) a[k] = b[k] = 0.f;
+    int r = 0;
+    for (; r + kColSums <= rows; r += kColSums) {
+#pragma unroll
+      for (int k = 0; k < kColSums; ++k) {
+        const float mk = __ldg(M + (size_t)(r + k) * cols + c);
+        a[k] = fmaf(va[r + k], mk, a[k]);
+        if (NV == 2) b[k] = fmaf(vb[r + k], mk, b[k]);
+      }
     }
-    outa[c] = a0;
-    if (NV == 2) outb[c] = a1;
+#pragma unroll
+    for (int k = 0; k < kColSums; ++k) {
+      if (r + k < rows) {
+        const float mk = __ldg(M + (size_t)(r + k) * cols + c);
+        a[k] = fmaf(va[r + k], mk, a[k]);
+        if (NV == 2) b[k] = fmaf(vb[r + k], mk, b[k]);
+      }
+    }
+#pragma unroll
+    for (int w = kColSums / 2; w > 0; w /= 2) {
+#pragma unroll
+      for (int k = 0; k < w; ++k) {
+        a[k] += a[k + w];
+        if (NV == 2) b[k] += b[k + w];
+      }
+    }
+    outa[c] = a[0];
+    if (NV == 2) outb[c] = b[0];
   }
 }
 

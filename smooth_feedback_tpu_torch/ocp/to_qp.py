@@ -22,9 +22,10 @@ import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
 from .._precision import ieee_f32_matmul
-from ..qp.types import QuadraticProgram
+from ..qp.types import QPSolution, QuadraticProgram
+from .collocation.functions import mesh_interp
 from .collocation.mesh import Mesh, diffmat_local
-from .ocp import OCP
+from .ocp import OCP, OCPSolution
 
 
 def variable_layout(ocp: OCP, mesh: Mesh):
@@ -274,3 +275,32 @@ def _ocp_to_qp_impl(
     if vectors_only:
         return q, l, u
     return QuadraticProgram(P=P, q=q, A=A, l=l, u=u)
+
+
+def qpsol_to_ocpsol(
+    ocp: OCP,
+    mesh: Mesh,
+    qpsol: QPSolution,
+    tf,
+    xl_fun: Callable,
+    ul_fun: Callable,
+) -> OCPSolution:
+    """Interpolate a QP solution back into OCP trajectories: the tangent
+    deviations at the nodes, interpolated on ``mesh`` and applied to the
+    nominal ``(xl_fun(t), ul_fun(t))`` with ``rplus``."""
+    lay = variable_layout(ocp, mesh)
+    N, nx, nu = lay["N"], lay["nx"], lay["nu"]
+    Xmat = qpsol.primal[: lay["xvar_L"]].reshape(N + 1, nx)
+    Umat = qpsol.primal[lay["uvar_B"] :].reshape(N, nu)
+    X, U = ocp.X, ocp.U
+    tf = torch.as_tensor(tf, dtype=Xmat.dtype, device=Xmat.device)
+
+    def xfun(t):
+        tngnt = mesh_interp(mesh, Xmat, t / tf, extend=True)
+        return X.rplus(xl_fun(t), tngnt)
+
+    def ufun(t):
+        tngnt = mesh_interp(mesh, Umat, t / tf, extend=False)
+        return U.rplus(ul_fun(t), tngnt)
+
+    return OCPSolution(t0=0.0, tf=tf, x=xfun, u=ufun)

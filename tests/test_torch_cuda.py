@@ -504,6 +504,69 @@ def test_problem_kernel_at_ocp_sweep_shape(dev):
     assert share(k, r) >= 0.995 or share(k, d) >= share(r, d) - 0.005
 
 
+def test_problem_kernel_at_refined_ocp_shape(dev):
+    """The per-problem kernel at the refinement fleet's second-pass
+    subproblem shape (chip_smoke.OCP_REFINED_QP_SHAPE, B = 64; streamed
+    from device memory) on problem_family, under the same rules as at the
+    sweep's shape: 20 fixed iterations within chip_smoke's bound, then a
+    solve with the sweep's inner settings where both return the same
+    statuses and counts match an f64 run's in as many members as the f32
+    plain version's do, less max(1, B / 32) (chip_smoke.compare_with_plain's
+    rule for such solves: at eps 1e-6 an f32 solve stops at whichever check
+    its rounding passes first, and at this shape the statuses split too)."""
+    import dataclasses
+
+    from chip_smoke import ITER_TOL, OCP_REFINED_QP_SHAPE, ocp_sweep_params
+
+    n, m = OCP_REFINED_QP_SHAPE
+    assert problem_route(n, m)[0] == "streaming"
+    prm = ocp_sweep_params("cuda").qp
+    args = _problem_inputs(n, m, 64, seed=5, dev=dev, prm=prm)
+    zero = dataclasses.replace(prm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                               eps_dual_inf=0.0, max_iter=20)
+    args[15][4] = int(QPSolutionStatus.DualInfeasible)
+    run = torch.ones(64, dtype=torch.bool, device=dev)
+    run[[1, 4]] = False
+    admm_iterate_cuda.launches = 0
+    k, r = admm_iterate_cuda(zero, *args), admm_iterate_reference(zero, *args)
+    d = admm_iterate_reference(zero, *(a.double() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda.launches == 1
+    assert bool((k[4][run] == 20).all()) and bool((r[4][run] == 20).all())
+    for kt, rt, dt in zip(k[:3], r[:3], d[:3]):
+        floor = float((rt.double() - dt).abs().max())
+        scale = max(1.0, float(dt.abs().max()))
+        assert float((kt - rt).abs().max()) <= ITER_TOL * scale + 2 * floor
+    k, r = admm_iterate_cuda(prm, *args), admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *(a.double() if a.is_floating_point() else a for a in args))
+    torch.cuda.synchronize()
+    same = lambda a, b, i: int((a[i] == b[i]).sum())
+    allow = max(1, 64 // 32)
+    what = (f"statuses kernel {k[3].tolist()}, plain {r[3].tolist()}, f64 {d[3].tolist()}; iters "
+            f"kernel {k[4].tolist()}, plain {r[4].tolist()}, f64 {d[4].tolist()}")
+    assert same(k, d, 3) >= same(r, d, 3) - allow, what
+    assert same(k, d, 4) >= same(r, d, 4) - allow, what
+
+
+def test_ocp_qp_round_trip_on_card(dev):
+    """examples/ocp_se2_qp.py's round trip (chip_smoke.ocp_qp_run: ocp_to_qp,
+    solve_qp with the example's parameters, qpsol_to_ocpsol) on the card:
+    Optimal through one admm_problem launch, x(t) at the 6 sample times
+    within 1e-4 of its scale plus twice the f32 noise of the torch route."""
+    from chip_smoke import ocp_qp_run
+
+    admm_iterate_cuda.launches = 0
+    sol, xs, _ = ocp_qp_run(dev, "cuda")
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda.launches == 1 and int(sol.status) == 0
+    sol_t, xs_t, _ = ocp_qp_run(dev, "torch")
+    sol_d, xs_d, _ = ocp_qp_run(dev, "torch", torch.float64)
+    assert int(sol_t.status) == 0 and int(sol_d.status) == 0
+    floor = float((xs_t.double() - xs_d).abs().max())
+    scale = max(1.0, float(xs_d.abs().max()))
+    assert float((xs - xs_t).abs().max()) <= 1e-4 * scale + 2 * floor
+
+
 def test_shared_factors_past_the_kernel_run_the_torch_loop(dev):
     """Shared factors at n = m = 160 (past the shared kernel's MAX_DIM) on
     backend "cuda" with CUDA tensors: the torch shared loop runs on the

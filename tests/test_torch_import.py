@@ -28,7 +28,7 @@ def test_port_imports_without_jax():
     for m in ("qp.cuda_kernel", "groups._series", "groups.groups", "controllers.mpc",
               "controllers.asif", "controllers.pid", "estimators", "estimators.ekf",
               "utils.compensated", "utils.bounds", "utils.linalg", "utils.spline", "nlp",
-              "ocp.nlp", "ocp.flatten", "ocp.to_nlp", "ocp.collocation.functions",
+              "ocp.nlp", "ocp.flatten", "ocp.to_nlp", "ocp.solve", "ocp.collocation.functions",
               "solvers", "solvers.sqp"):
         assert f"smooth_feedback_tpu_torch.{m}" in mods
     code = (

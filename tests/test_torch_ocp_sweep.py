@@ -28,6 +28,7 @@ from smooth_feedback_tpu.solvers import rescue_nonoptimal as j_rescue
 from smooth_feedback_tpu.solvers import solve_nlp_sqp_batch as j_batch
 from smooth_feedback_tpu_torch.convert import nlp_solution_from_numpy
 from smooth_feedback_tpu_torch.nlp import NLPSolutionStatus
+from smooth_feedback_tpu_torch.ocp.collocation import Mesh as TMesh
 from smooth_feedback_tpu_torch.solvers import solve_nlp_sqp, solve_nlp_sqp_batch
 
 torch.set_num_threads(1)
@@ -73,7 +74,7 @@ def test_sweep_matches_jax():
     _agree(sj, st)
     assert bool((st.status == OPTIMAL).all())
     kkt = cs.ocp_kkt_f64(vels, nlp_solution_from_numpy(tuple(np.asarray(a) for a in sj), "cpu"),
-                         MESH)
+                         TMesh.uniform(*MESH))
     np.testing.assert_allclose(kkt.numpy(), np.asarray(sj.kkt_res), rtol=1e-6, atol=1e-12)
 
 
@@ -126,5 +127,5 @@ def test_kernel_route_on_cpu_float32(monkeypatch):
     s64 = _jax_sweep()[0]
     np.testing.assert_array_equal(st.status.numpy(), np.asarray(s64.status))
     np.testing.assert_allclose(st.x.numpy(), np.asarray(s64.x), atol=1e-3, rtol=0)
-    kkt = cs.ocp_kkt_f64(vels, st, MESH)
+    kkt = cs.ocp_kkt_f64(vels, st, TMesh.uniform(*MESH))
     assert bool((kkt <= cs.OCP_TOL).all())
