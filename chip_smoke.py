@@ -12,7 +12,9 @@ kernels:
   factorized on its own) through the per-problem kernel
   (csrc/admm_problem.cu);
 - the SE(2) x R^3 vehicle MPC + ASIF fleet of benchmarks/asif_bench.py
-  (B = 256), its MPC through the shared-matrix kernel;
+  (B = 256), its MPC through the shared-matrix kernel, its ASIF on the lane
+  backend with adaptive rho (asif_bench.py's settings) through the lane
+  kernel (csrc/admm_lane.cu);
 - benchmarks/ekf_bench.py's EKF fleets (SE(2) and SO(3), B = 4096, float32;
   the fleet, square-root fleet and vmap layouts; no kernel: dense batched
   algebra);
@@ -31,7 +33,11 @@ kernels:
   (the refined passes' on its streaming route);
 - examples/ocp_se2_nlp.py's OCP through solve_ocp (B = 1) and
   examples/ocp_se2_qp.py's QP through ocp_to_qp, solve_qp and
-  qpsol_to_ocpsol.
+  qpsol_to_ocpsol;
+- benchmarks/qp_bench.py's f32 lane column (B = 256 random QPs at n = m =
+  8, 32, 96, density 0.3) and a (3, 24) family with adaptive rho and
+  compensated checks through the lane kernel; n = m = 128 on the plain
+  lane loop (the counted fall-through).
 
 Phases:
 
@@ -48,7 +54,10 @@ Phases:
      iteration counts); the layout each launch takes at its path's shape,
      where the per-problem kernel must keep Minv and As resident in shared
      memory; the per-problem kernel also on a numpy family whose members
-     fire every certificate;
+     fire every certificate; the lane kernel at the ASIF's (3, 53) with
+     adaptive rho off (fixed iterations) and on (whole solves: statuses
+     against float64, iteration and refactorization counts against the
+     plain version), and on the lane phase's shapes;
   4. each path: closed-loop fleet steps with every launch count set to 0
      just before and read just after, step time, the Optimal share, and the
      first steps again on the plain path;
@@ -294,6 +303,9 @@ KERNELS = {
                     "smooth_feedback_tpu/qp/pallas_kernel.py:234"),
     "admm_problem": ("smooth_feedback_tpu_torch/csrc/admm_problem.cu",
                      "smooth_feedback_tpu/qp/pallas_kernel.py:47"),
+    # no Pallas kernel: the JAX package's lane backend, one XLA while_loop
+    "admm_lane": ("smooth_feedback_tpu_torch/csrc/admm_lane.cu",
+                  "smooth_feedback_tpu/qp/solver.py:645"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor
 # cores (both kernels run IEEE f32 FMAs)
@@ -336,9 +348,10 @@ def build_phase():
     # problems a warp), registers and spills
     name = "?"
     for line in _build.build_log.splitlines():
-        found = re.search(r"\d(admm_[a-z]+_kernel)I((?:Li\d+E)+)", line)
+        found = re.search(r"\d(admm_[a-z]+_kernel)(?:I((?:Li\d+E)+))?", line)
         if found:
-            name = found.group(1) + "<" + ", ".join(re.findall(r"Li(\d+)E", found.group(2))) + ">"
+            name = found.group(1) + ("<" + ", ".join(re.findall(r"Li(\d+)E", found.group(2))) + ">"
+                                     if found.group(2) else "")
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -384,6 +397,17 @@ def layout_phase():
     streamed = lib.admm_problem_route(600, 600, ck.PROBLEM_WARPS, ctypes.byref(smem))
     require(streamed == 0 and ck.problem_route(600, 600)[0] == "streaming",
             "n = m = 600 is not streamed")
+    # admm_lane at the ASIF's and the lane phase's shapes; n = m = 128 refused
+    for b, n, m in [(ASIF_B, 3, 53), *((LANE_B, k, k) for k in LANE_SHAPES),
+                    (LANE_B, *LANE_ADAPTIVE_SHAPE)]:
+        out = (ctypes.c_int * 2)()
+        require(lib.admm_lane_plan(b, n, m, out) == 1, f"admm_lane_plan refused ({n}, {m})")
+        require(tuple(out) == ck.lane_plan(b, n, m), "lane_plan does not mirror the library")
+        phase("layout", f"admm_lane at B={b}, n={n}, m={m}: {out[0]} problems (warps) and "
+                        f"{out[1]} bytes of shared memory a block")
+    n = LANE_FALLTHROUGH_N
+    require(lib.admm_lane_plan(4, n, n, out) == 0 and not ck.lane_fits(n, n),
+            f"n = m = {n} fits the lane kernel")
 
 
 def make_main_path(backend, dev):
@@ -482,13 +506,16 @@ RES_ATOL, RES_RTOL = 1e-3, 1e-2
 
 
 def f64(args):
-    return tuple(a.double() if a.dtype == torch.float32 else a for a in args)
+    return tuple(a.double() if a is not None and a.dtype == torch.float32 else a for a in args)
 
 
 def wrappers():
-    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda, admm_iterate_cuda_shared
+    from smooth_feedback_tpu_torch.qp import (
+        admm_iterate_cuda, admm_iterate_cuda_lane, admm_iterate_cuda_shared,
+    )
 
-    return {"admm_shared": admm_iterate_cuda_shared, "admm_problem": admm_iterate_cuda}
+    return {"admm_shared": admm_iterate_cuda_shared, "admm_problem": admm_iterate_cuda,
+            "admm_lane": admm_iterate_cuda_lane}
 
 
 def reset_counts():
@@ -521,13 +548,14 @@ def bound(args, out, prm):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def residual_slack(qps, args, out, prm):
+def residual_slack(qps, args, out, prm, scalings=None):
     """Worst ratio, over the members the kernel calls Optimal, of each
     unscaled residual (re-evaluated in float64) to its stopping tolerance
     (plus 1e-4 for the kernel's own f32 evaluation).  ``qps`` holds P and A
-    with a leading axis of 1 (shared) or B."""
+    with a leading axis of 1 (shared) or B; ``scalings`` ``(sx, sy, c)``,
+    by default where the ADMM kernels' arguments hold them."""
     d = torch.float64
-    sx, sy, c = (a.to(d) for a in args[7:10])
+    sx, sy, c = (a.to(d) for a in (scalings or args[7:10]))
     c = c.reshape(-1, 1)
     q = qps.q.to(d)
 
@@ -553,21 +581,24 @@ def residual_slack(qps, args, out, prm):
     return float(ratio.max()) if bool(opt.any()) else 0.0
 
 
-def fixed_runs(wrapper, args, qprm, iters):
+def fixed_runs(wrapper, args, qprm, iters, plain=None):
     """``iters`` iterations with every tolerance 0 through ``wrapper`` (None:
-    skipped) and the plain version in float32 and float64."""
+    skipped) and the plain version (``plain``, by default the ADMM kernels')
+    in float32 and float64."""
     from smooth_feedback_tpu_torch.qp import admm_iterate_reference
 
+    plain = plain or admm_iterate_reference
     prm = dataclasses.replace(qprm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
                               eps_dual_inf=0.0, max_iter=iters)
     k = None if wrapper is None else wrapper(prm, *args)
-    r = admm_iterate_reference(prm, *args)
-    d = admm_iterate_reference(prm, *f64(args))
+    r = plain(prm, *args)
+    d = plain(prm, *f64(args))
     torch.cuda.synchronize()
     return k, r, d
 
 
-def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_ITERS):
+def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_ITERS,
+                          plain=None):
     """All tolerances 0: no member can stop, so kernel and plain version run
     exactly ``iters`` iterations and their iterates compare directly, each
     vector within ITER_TOL of its own scale plus twice the f32 plain
@@ -576,7 +607,7 @@ def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_
     from smooth_feedback_tpu_torch.qp import QPSolutionStatus
 
     MAX_ITER = int(QPSolutionStatus.MaxIterations)
-    k, r, d = fixed_runs(wrapper, args, qprm, iters)
+    k, r, d = fixed_runs(wrapper, args, qprm, iters, plain)
     ran = bool((k[3] == MAX_ITER).all() and (r[3] == MAX_ITER).all()
                and (k[4] == iters).all() and (r[4] == iters).all())
     rows, worst, ok = [], 0.0, True
@@ -686,6 +717,95 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
     require(err_same <= PRIMAL_TOL, f"{name}: primal differs by {err_same:.3e} > {PRIMAL_TOL:g}")
     require(slack <= 1.0, f"{name}: an Optimal point fails the f64 residual test")
     return err_same, k
+
+
+def lane_bound(args, out, prm):
+    """The least time the card could take for one admm_lane call, in ms, and
+    what sets it: every input read once and every output written once at the
+    HBM rate, against the FMAs of the iterations (3 products, 2 more a KKT
+    refinement sweep), checks (6 products) and factorizations (A' diag(rho)
+    A, the Cholesky factor, the inverse; one a member when no factors are
+    given, one per refactorization) this call's members ran, at the f32
+    rate."""
+    n, m = args[1].shape[-1], args[3].shape[-1]
+    moved = sum(a.numel() * a.element_size() for a in (*args, *out) if a is not None)
+    iters, refactors = out[4].to(torch.int64), out[7].to(torch.int64)
+    per_iter = 2 * (2 * m * n + n * n + 2 * max(0, prm.kkt_refine_iters) * n * n)
+    per_check = 2 * (4 * m * n + 2 * n * n)
+    per_factor = 2 * (n * n * m + n ** 3 // 3 + n ** 3)
+    factors = refactors + (1 if args[12] is None else 0)
+    flops = float((iters * per_iter + n_checks(iters, prm.stop_check_iter) * per_check
+                   + factors * per_factor).sum())
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lane_compare(name, args, prm):
+    """One whole solve through admm_lane against its plain version in f32
+    (refactorizing the adapting members alone, as the kernel does) and in
+    f64.  Statuses against the f64 run: equal on as many members as the
+    f32 plain version's, less max(1, B / 128).  With a static rho, the
+    iteration counts against the f32 plain version (equal on 99.5 % of
+    members or, where the f32 plain version itself splits from the f64 run
+    more often, matching the f64 run at least as often as it does, within
+    half a point) and, where they agree, each member's unscaled primal
+    within PRIMAL_TOL of its scale max(1, |x|) plus twice the f32 plain
+    version's distance from the f64 run.  Adaptive rho makes discrete
+    decisions from f32 residuals, and two f32 runs then take other rho
+    paths to other points within eps: the iteration and refactorization
+    counts are judged as compare_with_plain's noisy mode judges the OCP
+    subproblems (equal to the f64 run's on as many members as the f32 plain
+    version's, less max(1, B / 32)), the primal not at all.  Every point the
+    kernel calls Optimal passes the f64 stopping test.  Returns the largest
+    primal difference where it is judged and the kernel's outputs."""
+    from smooth_feedback_tpu_torch.qp import (
+        QuadraticProgram, admm_iterate_cuda_lane, admm_iterate_lane_reference,
+    )
+
+    k = admm_iterate_cuda_lane(prm, *args)
+    r = admm_iterate_lane_reference(prm, *args, member_refactor=True)
+    d = admm_iterate_lane_reference(prm, *f64(args), member_refactor=True)
+    torch.cuda.synchronize()
+    B_ = k[3].numel()
+    share = lambda mask: float(mask.float().mean())
+    n_kd, n_rd = int((k[3] == d[3]).sum()), int((r[3] == d[3]).sum())
+    allow = max(1, B_ // 128)
+    counts_ok, rows = True, []
+    for label, i in (("iters", 4), ("refactors", 7)):
+        kr, kd, rd = share(k[i] == r[i]), share(k[i] == d[i]), share(r[i] == d[i])
+        rows.append(f"{label} equal kernel/plain {kr * 100:.2f}% kernel/plain-f64 {kd * 100:.2f}% "
+                    f"plain/plain-f64 {rd * 100:.2f}%")
+        if prm.adaptive_rho:
+            counts_ok = counts_ok and int((k[i] == d[i]).sum()) >= int((r[i] == d[i]).sum()) - max(1, B_ // 32)
+        else:
+            counts_ok = counts_ok and (kr >= 0.995 or (rd < 0.995 and kd >= rd - 0.005))
+    sx = args[6].double()
+    xk, xr, xd = (o[0].double() * sx for o in (k, r, d))
+    scale = xd.abs().amax(dim=1).clamp(min=1.0)
+    err = (xk - xr).abs().amax(dim=1)
+    floor = (xr - xd).abs().amax(dim=1)
+    same = (k[4] == r[4]) & (not prm.adaptive_rho)
+    primal_ok = bool((err <= PRIMAL_TOL * scale + 2 * floor)[same].all())
+    worst = float(err[same].max()) if bool(same.any()) else 0.0
+    slack = residual_slack(QuadraticProgram(*args[:5]), args, k, prm, (args[6], args[7], args[5]))
+    ref = lambda o: (f"mean {float(o[7].float().mean()):.3f} max {int(o[7].max())} "
+                     f"members refactorized {int((o[7] > 0).sum())}")
+    phase("kernel", f"{name}: statuses equal to the f64 run's in {n_kd} of {B_} members (f32 plain "
+                    f"{n_rd}; allowance {allow}), Optimal kernel {share(k[3] == 0) * 100:.2f}% "
+                    f"plain-f64 {share(d[3] == 0) * 100:.2f}%; " + "; ".join(rows)
+                    + f"; mean iters kernel {float(k[4].float().mean()):.2f} plain "
+                    f"{float(r[4].float().mean()):.2f}; refactorizations per member: kernel "
+                    f"{ref(k)}, plain {ref(r)}; max |dprimal| equal-iters "
+                    + (f"(adaptive rho: not judged; all {float(err.max()):.3e})" if prm.adaptive_rho
+                       else f"{worst:.3e} (bound {PRIMAL_TOL:g} x scale + 2 x floor)")
+                    + f"; kernel's Optimal points re-checked in "
+                    f"f64: worst residual / tolerance {slack:.4f}")
+    require(n_kd >= n_rd - allow, f"{name}: statuses match the f64 run's in {n_kd} members, the "
+                                  f"f32 plain version's in {n_rd}")
+    require(counts_ok, f"{name}: iteration or refactorization counts differ beyond the rule")
+    require(primal_ok, f"{name}: the primal differs beyond the bound")
+    require(slack <= 1.0, f"{name}: an Optimal point fails the f64 residual test")
+    return worst, k
 
 
 def kernel_phase(step, dev):
@@ -1081,7 +1201,7 @@ def vehicle_asif_path(mpc_backend, dev):
     fl = asif_filter(dev)
     asif, aws = make_asif_step(
         X, U, vehicle_asif_f, fl["h"], fl["bu"],
-        params=ASIFilterParams(T=ASIF_T, asif=asif_to_qp_params(), qp=asif_qp_params("torch", True)),
+        params=ASIFilterParams(T=ASIF_T, asif=asif_to_qp_params(), qp=asif_qp_params("lane", True)),
         W_u=fl["W_u"], ulim=fl["ulim"], **kw,
     )
     return X, vehicle_asif_f, fl["h"], mpc, mws, asif, aws
@@ -1125,8 +1245,8 @@ def asif_mpc_params(backend):
 
 
 def asif_qp_params(backend, adaptive):
-    """The bench's ASIF solver settings (asif_bench.py:112-115): the lane
-    backend there, whose semantics the torch loop has."""
+    """The bench's ASIF solver settings (asif_bench.py:112-115) on a port
+    backend; the bench's own is "lane" with adaptive rho."""
     from smooth_feedback_tpu_torch.qp import QPSolverParams
 
     return QPSolverParams(polish=False, max_iter=250, stop_check_iter=10, rho=0.02,
@@ -1148,11 +1268,11 @@ def batch_ws(ws, B_):
 
 def vehicle_asif_phase(parts, dev):
     """ASIF_WARM + ASIF_STEPS closed-loop steps of the bench's fleet: the MPC
-    through the shared-matrix kernel, the ASIF on the torch loop with
-    adaptive rho, the plant.  The barrier must stay positive at every
-    post-step state; the kernel must launch once a step.  Returns the launch
-    counts, the first ASIF_PLAIN_STEPS steps' inputs and results, and the
-    state and carries after the run."""
+    through the shared-matrix kernel, the ASIF through the lane kernel with
+    adaptive rho (asif_bench.py's backend="lane"), the plant.  The barrier
+    must stay positive at every post-step state; each kernel must launch
+    once a step.  Returns the launch counts, the first ASIF_PLAIN_STEPS
+    steps' inputs and results, and the state and carries after the run."""
     from torch.func import vmap
 
     X, f, h, mpc, mws0, asif, aws0 = parts
@@ -1193,13 +1313,17 @@ def vehicle_asif_phase(parts, dev):
     require(h_min > 0.0, f"safety: min barrier {h_min} <= 0")
     require(counts["admm_shared"] == steps,
             f"shared kernel launched {counts['admm_shared']} times in {steps} steps")
+    require(counts["admm_lane"] == steps,
+            f"lane kernel launched {counts['admm_lane']} times in {steps} steps")
     require(bool(torch.isfinite(xs).all()), "non-finite vehicle state")
     return counts, kept, (ASIF_DT * steps, xs, mws, aws)
 
 
 def vehicle_asif_split(parts, carry, dev):
     """A synchronised split of one step at the carried state, five times
-    over: MPC, ASIF transcription, ASIF solve, plant; medians."""
+    over: MPC, ASIF transcription, ASIF solve (the lane kernel's route), the
+    same solve on the torch loop with adaptive rho (the route before the
+    lane kernel, for comparison; not part of the step), plant; medians."""
     from torch.func import vmap
     from smooth_feedback_tpu_torch.controllers import asif_to_qp_fleet
     from smooth_feedback_tpu_torch.qp import solve_qp_batch
@@ -1213,7 +1337,9 @@ def vehicle_asif_split(parts, carry, dev):
         "MPC": lambda _: mpc.fleet_shared_t(mws, t, xs),
         "ASIF transcription": lambda m: (m, asif_to_qp_fleet(
             X, Rn(2), asif_to_qp_params(), ASIF_T, xs, m.u, fl["W_u"], fl["ulim"], f, h, fl["bu"])),
-        "ASIF solve": lambda mq: solve_qp_batch(mq[1], asif_qp_params("torch", True), aws),
+        "ASIF solve": lambda mq: (mq, solve_qp_batch(mq[1], asif_qp_params("lane", True), aws)),
+        "ASIF solve on the torch loop (not in the step)": lambda ms: (
+            solve_qp_batch(ms[0][1], asif_qp_params("torch", True), aws), ms[1])[1],
         "plant": lambda sol: vmap(lambda x, u: X.rplus(x, ASIF_DT * f(x, u)))(xs, sol.primal[:, :2]),
     }
     times = {name: [] for name in list(stages) + ["whole step"]}
@@ -1280,14 +1406,17 @@ def vehicle_asif_plain_phase(dev, kept):
 
 
 def vehicle_kernel_phase(parts, kept, dev):
-    """Both kernels at this path's shapes, against the plain version:
+    """The kernels at this path's shapes, against their plain versions:
     admm_shared on one step's condensed vehicle QPs (n = m = 64, B = 256),
     admm_problem on one step's ASIF QPs (n = 3, m = 53, adaptive rho off),
-    each cold and warm.  Returns each kernel's worst error and warm row."""
+    and admm_lane on the same ASIF QPs (FIXED_ITERS iterations with adaptive
+    rho off, then whole solves with it on), each cold and warm.  Returns
+    each kernel's worst error and warm row."""
     from smooth_feedback_tpu_torch.controllers import asif_to_qp_fleet
     from smooth_feedback_tpu_torch.groups import Rn
     from smooth_feedback_tpu_torch.qp import (
-        admm_iterate_cuda, admm_iterate_cuda_shared, admm_iterate_reference,
+        admm_iterate_cuda, admm_iterate_cuda_lane, admm_iterate_cuda_shared,
+        admm_iterate_lane_reference, admm_iterate_reference, lane_kernel_args,
         per_problem_kernel_args, shared_kernel_args, solve_qp_batch,
     )
 
@@ -1329,6 +1458,7 @@ def vehicle_kernel_phase(parts, kept, dev):
                                    dtype=torch.float32, device=dev)
     worst_p = fixed_iteration_check(admm_iterate_cuda, tuple(noisy), prm_k,
                                     "a seeded random start (std 0.1)")
+    start = noisy[12:15]
     rows = {}
     for name, args in (("cold", cold), ("warm", per_problem_kernel_args(aq, None, aws, prm_k))):
         err, k = compare_with_plain(f"ASIF per-problem {name}", admm_iterate_cuda, prm_k, args, aq)
@@ -1339,8 +1469,31 @@ def vehicle_kernel_phase(parts, kept, dev):
                         f"{rows[name][1]:.4f} ms per solve at B={ASIF_B}, n={an}, m={am} (means of "
                         f"back-to-back calls); bound {rows[name][2]:.4f} ms ({rows[name][3]})")
 
-    # the ASIF solve on both routes, warm-started from the carry
-    for route, p in (("torch loop, adaptive rho", asif_qp_params("torch", True)),
+    # admm_lane, the path's own route for the ASIF: fixed iterations from the
+    # seeded random start with adaptive rho off, then whole solves with it on
+    prm_l = asif_qp_params("lane", True)
+    cold = lane_kernel_args(aq, None, None, prm_l)
+    noisy = list(cold)
+    noisy[16:19] = start  # x0, z0, y0: admm_problem's seeded random start
+    worst_l = fixed_iteration_check(admm_iterate_cuda_lane, tuple(noisy),
+                                    dataclasses.replace(prm_l, adaptive_rho=False),
+                                    "admm_lane, a seeded random start (std 0.1)",
+                                    plain=admm_iterate_lane_reference)
+    lane_rows = {}
+    for name, args in (("cold", cold), ("warm", lane_kernel_args(aq, None, aws, prm_l))):
+        err, k = lane_compare(f"ASIF lane {name}", args, prm_l)
+        worst_l = max(worst_l, err)
+        lane_rows[name] = (time_ms(lambda: admm_iterate_cuda_lane(prm_l, *args), 20),
+                           time_ms(lambda: admm_iterate_lane_reference(prm_l, *args), 3),
+                           *lane_bound(args, k, prm_l))
+        phase("kernel", f"ASIF lane {name}: kernel {lane_rows[name][0]:.4f} ms, plain "
+                        f"{lane_rows[name][1]:.4f} ms per solve at B={ASIF_B}, n={an}, m={am}, "
+                        f"adaptive rho (means of back-to-back calls); bound "
+                        f"{lane_rows[name][2]:.6f} ms ({lane_rows[name][3]})")
+
+    # the ASIF solve on each route, warm-started from the carry
+    for route, p in (("lane kernel, adaptive rho", prm_l),
+                     ("torch loop, adaptive rho", asif_qp_params("torch", True)),
                      ("kernel, static rho", prm_k)):
         ts, sol = [], None
         for _ in range(5):
@@ -1352,7 +1505,7 @@ def vehicle_kernel_phase(parts, kept, dev):
         phase("kernel", f"ASIF solve ({route}): {float(np.median(ts)):.3f} ms (median of 5, "
                         f"solve_qp_batch), mean iters {float(sol.iters.float().mean()):.3f}, "
                         f"Optimal {float((sol.status == 0).float().mean()) * 100:.3f}%")
-    return worst_s, shared_row, worst_p, rows["warm"]
+    return worst_s, shared_row, worst_p, rows["warm"], worst_l, lane_rows["warm"]
 
 
 def entry_points_phase(dev):
@@ -2008,9 +2161,9 @@ def ocp_sweep_phase(dev):
                        f"shared-loop fall-throughs {qsolver.shared_fallthroughs - fall0}")
     require(opt >= OCP_JAX_OPTIMAL, f"Optimal share after rescue {opt:.5f} < JAX's {OCP_JAX_OPTIMAL}")
     require(worst64 <= OCP_TOL, f"an Optimal member's float64 KKT residual is {worst64:.3e}")
-    require(counts == {"admm_shared": 0, "admm_problem": lockstep},
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": lockstep},
             f"admm_problem launches {counts} != {lockstep} lockstep iterations")
-    require(rcounts == {"admm_shared": 0, "admm_problem": 0}, f"the rescue launched {rcounts}")
+    require(rcounts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 0}, f"the rescue launched {rcounts}")
     return counts, sol
 
 
@@ -2262,7 +2415,7 @@ def ocp_single_phase(dev, sweep_sol):
                         f"launches {counts}; {secs:.3f} s")
     require(int(s1.status) == int(sweep_sol.status[0]), "the single form's status differs")
     require(kkt <= OCP_TOL, f"the single form's float64 KKT residual is {kkt:.3e}")
-    require(counts == {"admm_shared": 0, "admm_problem": int(s1.iters)},
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": int(s1.iters)},
             f"single form launches {counts}")
 
 
@@ -2387,7 +2540,7 @@ def ocp_refine_phase(dev):
         err = max(p["errs"]) if "errs" in p else float("nan")
         launches["ocp-refine"] += s0["launches"]["admm_problem"]
         launches["ocp-refine rescue"] += s1["launches"]["admm_problem"]
-        good_launches = (good_launches and s0["launches"] == {"admm_shared": 0, "admm_problem": lockstep}
+        good_launches = (good_launches and s0["launches"] == {"admm_shared": 0, "admm_lane": 0, "admm_problem": lockstep}
                          and s1["launches"]["admm_shared"] == 0)
         phase("ocp-refine", f"pass {k}: mesh {p['mesh'].N_ivals} intervals / {p['mesh'].N_colloc} "
                             f"points (NLP n={lay.n}, m={lay.m}; QP n={n}, m={m}, {problem_route(n, m)[0]} "
@@ -2554,7 +2707,7 @@ def ocp_solve_phase(dev):
     require(len(info.meshes) == OCP_JAX_SOLVE_PASSES, "solve_ocp's pass count differs from JAX's")
     require(info.errors[-1] <= OCP_TARGET_ERR, f"solve_ocp's final error {info.errors[-1]:.3e}")
     require(dx0 <= 1e-4, f"x(0) lies {dx0:.3e} from the fixed initial state")
-    require(counts == {"admm_shared": 0, "admm_problem": sum(info.nlp_iters)},
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": sum(info.nlp_iters)},
             f"solve_ocp launches {counts} != {sum(info.nlp_iters)} SQP iterations")
     return counts, shapes
 
@@ -2644,7 +2797,7 @@ def ocp_qp_phase(dev):
                     f"torch - f64 torch {floor:.3e}, scale {scale:.3e}; bound 1e-4 x scale + 2 x "
                     f"floor); launches {counts}; {secs:.3f} s")
     require(int(sol.status) == 0 and int(sol_t.status) == 0, "the QP round trip is not Optimal")
-    require(counts == {"admm_shared": 0, "admm_problem": 1}, f"ocp-qp launches {counts}")
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 1}, f"ocp-qp launches {counts}")
     require(dx <= 1e-4 * scale + 2 * floor, "the kernel route's x(t) differs beyond the bound")
     qp1 = QuadraticProgram(*(a[None] for a in qp))
     qprm = ocp_qp_params("cuda", polish=False)
@@ -2692,10 +2845,88 @@ def shared_route_phase(dev):
                           f"loop on the card ({falls} fall-through, launches {counts}); statuses "
                           f"{k.status.tolist()} iters {k.iters.tolist()} (backend torch "
                           f"{r.status.tolist()} {r.iters.tolist()})")
-    require(counts == {"admm_shared": 0, "admm_problem": 0} and falls == 1,
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 0} and falls == 1,
             "the shared route launched a kernel")
     require(torch.equal(k.status, r.status) and torch.equal(k.iters, r.iters),
             "the shared route differs from backend torch")
+
+
+# ------------------------------------------- lane (benchmarks/qp_bench.py)
+
+
+LANE_B = 256  # qp_bench.py's throughput sweep batch
+LANE_SHAPES = (8, 32, 96)  # its lane column's n = m (density 0.3)
+LANE_DENSITY = 0.3
+LANE_ADAPTIVE_SHAPE = (3, 24)  # tests/test_qp.py's lane f32 and adaptive-rho shape
+LANE_FALLTHROUGH_N = 128
+
+
+def lane_family(n, m, B_, density, seed):
+    """numpy ``(P, q, A, l, u)`` of qp_bench.py's problems (the JAX package's
+    random_qp): P = M M' with M masked to ``density``, q and A ~ N(0, 1),
+    bounds A x0 -+ (|N(0, 1)| + 0.1) for x0 ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B_, n, n)) * (rng.random((B_, n, n)) < density)
+    A = rng.standard_normal((B_, m, n))
+    center = np.einsum("bmn,bn->bm", A, rng.standard_normal((B_, n)))
+    spread = np.abs(rng.standard_normal((B_, m))) + 0.1
+    return M @ M.transpose(0, 2, 1), rng.standard_normal((B_, n)), A, center - spread, center + spread
+
+
+def lane_phase(dev):
+    """qp_bench.py's f32 lane column on the card: B = 256 fresh problems at
+    n = m in LANE_SHAPES (density 0.3) with QPSolverParams(max_iter=4000,
+    backend="lane") as qp_bench.py:85, then (3, 24) with adaptive rho and
+    compensated checks.  Each: one solve_qp_batch through the route (one
+    launch, statuses), the kernel against its plain version and an f64 run
+    on the launch's inputs (lane_compare), times and bound.  Then n = m =
+    128, which the kernel cannot hold: the plain loop on the card, one
+    fall-through counted, nothing launched.  Returns the launches of the
+    route's solves, the worst error and the shapes."""
+    from smooth_feedback_tpu_torch.convert import qp_from_numpy
+    from smooth_feedback_tpu_torch.qp import (
+        QPSolverParams, admm_iterate_cuda_lane, admm_iterate_lane_reference, lane_kernel_args,
+        solve_qp_batch,
+    )
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
+
+    cases = [((n, n), QPSolverParams(max_iter=4000, backend="lane")) for n in LANE_SHAPES]
+    cases.append((LANE_ADAPTIVE_SHAPE, QPSolverParams(max_iter=4000, backend="lane",
+                                                      adaptive_rho=True, compensated_check=True)))
+    worst, shapes, launches = 0.0, [], 0
+    for (n, m), prm in cases:
+        qp = qp_from_numpy(lane_family(n, m, LANE_B, LANE_DENSITY, SEED + n), dev, torch.float32)
+        reset_counts()
+        sol = solve_qp_batch(qp, prm)
+        counts = read_counts()
+        launches += counts["admm_lane"]
+        require(counts == {"admm_shared": 0, "admm_problem": 0, "admm_lane": 1},
+                f"lane ({n}, {m}): launches {counts}")
+        args = lane_kernel_args(qp, None, None, prm)
+        label = f"lane ({n}, {m})" + (" adaptive, compensated" if prm.adaptive_rho else "")
+        err, k = lane_compare(label, args, prm)
+        worst = max(worst, err)
+        ms = time_ms(lambda: admm_iterate_cuda_lane(prm, *args), 10)
+        plain_ms = time_ms(lambda: admm_iterate_lane_reference(prm, *args), 1)
+        bound_ms, bound_by = lane_bound(args, k, prm)
+        opt = float((sol.status == 0).float().mean())
+        phase("lane", f"{label}, B={LANE_B}: solve_qp_batch Optimal {opt * 100:.2f}% (polished), "
+                      f"launches {counts}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (means of "
+                      f"back-to-back calls), mean iters {float(k[4].float().mean()):.2f}, bound "
+                      f"{bound_ms:.6f} ms ({bound_by})")
+        shapes.append(f"B={LANE_B} n={n} m={m}")
+
+    n = LANE_FALLTHROUGH_N
+    qp = qp_from_numpy(lane_family(n, n, 4, LANE_DENSITY, SEED + n), dev, torch.float32)
+    falls = qsolver.lane_fallthroughs
+    reset_counts()
+    sol = solve_qp_batch(qp, QPSolverParams(max_iter=4000, backend="lane", polish=False))
+    counts, falls = read_counts(), qsolver.lane_fallthroughs - falls
+    phase("lane", f"n=m={n}, B=4 (the kernel cannot hold it): {falls} fall-through, launches "
+                  f"{counts}, statuses {sol.status.tolist()} on the plain loop on the card")
+    require(counts == {"admm_shared": 0, "admm_problem": 0, "admm_lane": 0} and falls == 1,
+            "the lane fall-through launched a kernel or was not counted")
+    return launches, worst, shapes
 
 
 # -------------------------------------------------------- PID and splines
@@ -2774,13 +3005,16 @@ def main():
     vcounts, vkept, vcarry = vehicle_asif_phase(vparts, dev)
     vehicle_asif_split(vparts, vcarry, dev)
     err = vehicle_asif_plain_phase(dev, vkept)
-    worst_s, _, worst_p, _ = vehicle_kernel_phase(vparts, vkept, dev)
+    worst_s, _, worst_p, _, worst_l, lane_row = vehicle_kernel_phase(vparts, vkept, dev)
     rows["admm_shared"] = (max(rows["admm_shared"][0], err, worst_s), rows["admm_shared"][1])
     rows["admm_problem"] = (max(rows["admm_problem"][0], worst_p), rows["admm_problem"][1])
+    launches["admm_lane"] = vcounts["admm_lane"]
     phase("launches", f"per path (counts set to 0 before each, read after): condensed "
                       f"{launches['admm_shared']} admm_shared in {STEPS} steps; per-member fleet "
                       f"{launches['admm_problem']} admm_problem in {FLEET_STEPS} steps; vehicle-asif "
                       f"{vcounts} in {ASIF_WARM + ASIF_STEPS} steps")
+    lcounts, worst_q, lshapes = lane_phase(dev)
+    rows["admm_lane"] = (max(worst_l, worst_q), lane_row)
     entry_points_phase(dev)
     mark("the control slices (condensed, fleet, vehicle-asif, entry points)")
 
@@ -2788,7 +3022,8 @@ def main():
     # output-feedback loop runs both its QPs through admm_problem
     reset_counts()
     ekf_fleet_phase(dev)
-    require(read_counts() == {"admm_shared": 0, "admm_problem": 0}, "an EKF fleet launched a kernel")
+    require(read_counts() == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 0},
+            "an EKF fleet launched a kernel")
     ofp = output_feedback_path(dev)
     ofcounts, ofkept = output_feedback_phase(ofp, dev)
     output_feedback_split(ofp, ofkept)
@@ -2827,6 +3062,7 @@ def main():
                          "output-feedback": ofcounts["admm_problem"],
                          "ocp-sweep": ocounts["admm_problem"], **rcounts,
                          "ocp-solve": scounts["admm_problem"], "ocp-qp": qcounts["admm_problem"]},
+        "admm_lane": {"vehicle-asif": vcounts["admm_lane"], "lane": lcounts},
     }
     shapes = {
         "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64"],
@@ -2835,6 +3071,7 @@ def main():
                         + [f"B={OCP_B} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]}",
                            f"B={OCP_B} n={rshape[0]} m={rshape[1]}"]
                         + [f"B=1 n={n} m={m}" for n, m in sshapes + [qshape]],
+        "admm_lane": [f"B={ASIF_B} n=3 m=53"] + lshapes,
     }
     kernels = []
     for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():

@@ -1,8 +1,15 @@
 """Batched dense QP solving (PyTorch port)."""
 
-from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared, admm_iterate_reference
+from .cuda_kernel import (
+    admm_iterate_cuda,
+    admm_iterate_cuda_lane,
+    admm_iterate_cuda_shared,
+    admm_iterate_lane_reference,
+    admm_iterate_reference,
+)
 from .solver import (
     QPFactors,
+    lane_kernel_args,
     per_problem_kernel_args,
     qp_factorize,
     qp_phase_timings,
@@ -32,8 +39,11 @@ __all__ = [
     "qp_phase_timings",
     "shared_kernel_args",
     "per_problem_kernel_args",
+    "lane_kernel_args",
     "warmstart_like",
     "admm_iterate_cuda",
     "admm_iterate_cuda_shared",
     "admm_iterate_reference",
+    "admm_iterate_cuda_lane",
+    "admm_iterate_lane_reference",
 ]

@@ -22,10 +22,22 @@ Two kernels, one per TPU kernel of ``smooth_feedback_tpu/qp/pallas_kernel.py``:
   memory feeds its matrix-vector products, reading ``Ps`` from device memory
   once per check; larger shapes stream the matrices on every iteration.
 
-:func:`admm_iterate_cuda_shared` and :func:`admm_iterate_cuda` launch their
-kernel on CUDA tensors and run :func:`admm_iterate_reference` on CPU tensors;
-nothing else chooses the plain version.  Each has a ``launches`` attribute
-that counts kernel launches.
+A third kernel has no Pallas counterpart:
+
+- ``csrc/admm_lane.cu`` runs the JAX package's lane backend
+  (``smooth_feedback_tpu/qp/solver.py::_solve_qp_batch_lane``, an XLA
+  ``lax.while_loop`` over batch-trailing stacks) as one launch: the whole
+  loop of a fleet of tiny per-problem QPs with its stopping checks (plain or
+  compensated), certificates, ``kkt_refine_iters`` and adaptive rho, the
+  reduced KKT matrix refactorized inside the kernel.  One warp per problem,
+  its matrices and vectors in shared memory (:func:`lane_plan`).
+
+:func:`admm_iterate_cuda_shared`, :func:`admm_iterate_cuda` and
+:func:`admm_iterate_cuda_lane` launch their kernel on CUDA tensors and run
+the plain version (:func:`admm_iterate_reference`,
+:func:`admm_iterate_lane_reference`) on CPU tensors; nothing else chooses
+the plain version.  Each has a ``launches`` attribute that counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -33,7 +45,8 @@ from __future__ import annotations
 import torch
 
 from .solver import (
-    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, _mtv, _mv, _norm_inf,
+    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, _lane_chol_inverse,
+    _lane_loop, _mtv, _mv, _norm_inf,
 )
 from .types import QPSolverParams
 
@@ -45,6 +58,8 @@ MAX_WARPS = 8  # shared kernel: warps per block (__launch_bounds__(256))
 SMS = 132  # streaming multiprocessors of an H100, four warp schedulers each
 PROBLEM_WARPS = 16  # per-problem kernel: warps per block, one block per problem
 PROBLEM_STATIC_SMEM = 4 * 10 * 16  # its block-reduction scratch
+LANE_MAX_WARPS = 8  # lane kernel: problems (warps) per block (__launch_bounds__(256))
+LANE_VEC_N, LANE_VEC_M = 9, 14  # lane kernel: n- and m-vectors a problem keeps
 
 
 def admm_iterate_reference(
@@ -156,6 +171,37 @@ def admm_iterate_reference(
     return x, z, y, status, iters, pres, dres
 
 
+def admm_iterate_lane_reference(
+    prm: QPSolverParams, P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us,
+    x0, z0, y0, status0, member_refactor=False,
+):
+    """Plain torch version of the lane kernel (any dtype): the lane
+    backend's loop (``qp.solver._lane_loop``, batch-trailing) on
+    batch-leading arguments.  ``P``/``Ps``/``Mred``/``Minv`` (B, n, n),
+    ``A``/``As`` (B, m, n), ``q``/``sx``/``qs``/``x0`` (B, n), ``l``/``u``/
+    ``sy``/``rho``/``ls``/``us``/``z0``/``y0`` (B, m), ``c`` (B,).  With
+    ``Mred`` and ``Minv`` None it factorizes first (``_lane_chol_inverse``);
+    a member whose factor fails and that would run starts Unknown.  Rho
+    adapts as in the JAX package (the whole fleet refactorized when a member
+    adapts) or, with ``member_refactor``, as in the kernel.  Returns ``(x,
+    z, y, status, iters, pres, dres, refactors)`` in scaled variables."""
+    tr = lambda a: a.permute(1, 2, 0) if a.dim() == 3 else a.T
+    Pt, At, Pst, Ast = (tr(a) for a in (P, A, Ps, As))
+    rhot = tr(rho)
+    status0 = status0.to(torch.int32)
+    if Minv is None:
+        Mredt, Minvt, fail = _lane_chol_inverse(Pst, Ast, rhot, prm.sigma)
+        status0 = torch.where(fail & (status0 == _RUNNING), _UNKNOWN, status0).to(torch.int32)
+    else:
+        Mredt, Minvt = tr(Mred), tr(Minv)
+    out = _lane_loop(
+        prm, Pt, tr(q), At, tr(l), tr(u), c, tr(sx), tr(sy), rhot, Pst, Ast, Mredt, Minvt,
+        tr(qs), tr(ls), tr(us), tr(x0), tr(z0), tr(y0), status0, member_refactor,
+    )
+    x, z, y = (v.T for v in out[:3])
+    return (x, z, y, *out[3:])
+
+
 def _round4(v: int) -> int:
     return (v + 3) & ~3
 
@@ -223,6 +269,35 @@ def problem_smem_bytes(n: int, m: int) -> int:
     """Dynamic shared memory one block of the per-problem kernel needs on
     the route :func:`problem_route` gives ``(n, m)``."""
     return problem_route(n, m)[1]
+
+
+def lane_problem_bytes(n: int, m: int) -> int:
+    """Shared memory one problem (one warp) of the lane kernel keeps
+    (mirrors ``problem_floats`` in csrc/admm_lane.cu): ``As``, ``Minv``,
+    ``Mred`` and two matrices of refactorization scratch at the odd row
+    stride ``n | 1``, and its vectors."""
+    ld = n | 1
+    return 4 * _round4(ld * (m + 4 * n) + LANE_VEC_N * n + LANE_VEC_M * m)
+
+
+def lane_fits(n: int, m: int) -> bool:
+    """Whether the lane kernel holds a problem of ``(n, m)``: one problem's
+    matrices and vectors within one block's ``SMEM_LIMIT``.  ``solve_qp_batch``
+    runs a lane batch that does not fit on the plain lane loop."""
+    return n >= 1 and m >= 1 and lane_problem_bytes(n, m) <= SMEM_LIMIT
+
+
+def lane_plan(B: int, n: int, m: int):
+    """How the lane kernel lays out ``B`` problems (mirrors ``plan`` in
+    csrc/admm_lane.cu): ``(problems a block, dynamic shared memory a block
+    in bytes)``.  A warp a problem; as many problems a block as fit, up to
+    ``LANE_MAX_WARPS``, but no more than it takes to give every SM a block.
+    Raises for a shape :func:`lane_fits` refuses."""
+    if not lane_fits(n, m):
+        raise ValueError(f"the lane kernel cannot hold n={n}, m={m}")
+    per = lane_problem_bytes(n, m)
+    ppb = min(LANE_MAX_WARPS, SMEM_LIMIT // per, max(1, -(-B // SMS)))
+    return ppb, ppb * per
 
 
 def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0,
@@ -349,3 +424,91 @@ def admm_iterate_cuda(
 
 
 admm_iterate_cuda.launches = 0
+
+
+_LANE_NAMES = ("P", "q", "A", "l", "u", "c", "sx", "sy", "rho", "Ps", "As", "Mred", "Minv",
+               "qs", "ls", "us", "x0", "z0", "y0")
+
+
+def _check_lane_args(prm, args, status0):
+    B, n = args[1].shape if args[1].dim() == 2 else (-1, -1)
+    m = args[3].shape[1] if args[3].dim() == 2 else -1
+    N, M = (n, n), (m, n)
+    shapes = dict(zip(_LANE_NAMES, (
+        N, (n,), M, (m,), (m,), (), (n,), (m,), (m,), N, M, N, N,
+        (n,), (m,), (m,), (n,), (m,), (m,),
+    )))
+    dev = args[1].device
+    for name, t in zip(_LANE_NAMES, args):
+        if t is None and name in ("Mred", "Minv"):
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if tuple(t.shape) != (B,) + shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B,) + shapes[name]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (args[11] is None) != (args[12] is None):
+        raise ValueError("Mred and Minv are given together or not at all")
+    if tuple(status0.shape) != (B,) or status0.dtype != torch.int32:
+        raise ValueError("status0 must be int32 of shape (B,)")
+    if status0.device != dev or not status0.is_contiguous():
+        raise ValueError("status0 must be contiguous and on the problems' device")
+    if prm.stop_check_iter < 1:
+        raise ValueError("stop_check_iter must be >= 1")
+    if not lane_fits(n, m):
+        raise ValueError(
+            f"the lane kernel cannot hold n={n}, m={m}: one problem needs "
+            f"{lane_problem_bytes(n, m)} <= {SMEM_LIMIT} bytes of shared memory"
+        )
+    return B, n, m
+
+
+def admm_iterate_cuda_lane(
+    prm: QPSolverParams, P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us,
+    x0, z0, y0, status0,
+):
+    """The lane backend's whole loop on float32 tensors, batch-leading.
+
+    CUDA tensors launch ``csrc/admm_lane.cu`` (or raise); CPU tensors run
+    :func:`admm_iterate_lane_reference`.  Shapes as there; ``Mred`` and
+    ``Minv`` None make the kernel factorize each member first.  Returns
+    ``(x, z, y, status, iters, pres, dres, refactors)`` in scaled
+    variables."""
+    from .. import _build
+
+    args = (P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us, x0, z0, y0)
+    B, n, m = _check_lane_args(prm, args, status0)
+    if _device_type(qs) == "cpu":
+        return admm_iterate_lane_reference(prm, *args, status0)
+    dev = qs.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (
+        torch.empty((B, n), **f32), torch.empty((B, m), **f32), torch.empty((B, m), **f32),
+        torch.empty((B,), **i32), torch.empty((B,), **i32),
+        torch.empty((B,), **f32), torch.empty((B,), **f32), torch.empty((B,), **i32),
+    )
+    ppb, _ = lane_plan(B, n, m)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.load().admm_lane_launch(
+            *(ptr(t) for t in (*args, status0, *outs)),
+            B, n, m, ppb,
+            prm.alpha, prm.sigma, prm.eps_abs, prm.eps_rel, prm.eps_primal_inf,
+            prm.eps_dual_inf, prm.adaptive_rho_tol,
+            prm.max_iter, prm.stop_check_iter, max(0, prm.kkt_refine_iters),
+            int(prm.adaptive_rho), int(prm.compensated_check), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"admm_lane_launch failed: CUDA error {err}")
+    admm_iterate_cuda_lane.launches += 1
+    return outs
+
+
+admm_iterate_cuda_lane.launches = 0

@@ -15,20 +15,27 @@ Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs a kernel of
 shape it cannot hold runs the torch shared loop instead, on the problems'
 device, and counts one ``shared_fallthroughs``), the per-problem kernel
 against per-problem factors or none (then every member is scaled and
-factorized here first, in torch).
+factorized here first, in torch).  ``"lane"`` is the JAX package's
+batch-trailing backend for fleets of tiny per-problem QPs: on CPU tensors
+its plain loop (below, in the JAX package's ``(m, n, B)`` layout), on CUDA
+tensors the whole loop as one launch of ``csrc/admm_lane.cu`` (a shape that
+kernel cannot hold runs the plain loop on the card and counts one
+``lane_fallthroughs``); shared factors on ``"lane"`` take the torch shared
+loop, as the JAX package's take its XLA shared path.
 
 Options, as in the JAX package: ``verbose`` (a host line at each stopping
-check of the torch loop; the kernels run their loop on the card and print
-nothing), ``polish`` (the masked active-set polish,
+check of the torch and lane loops; the kernels run their loop on the card
+and print nothing), ``polish`` (the masked active-set polish,
 Cholesky of the Schur complement in float64, LU of the quasi-definite
 (n+m) system in float32, with compensated refinement), ``compensated_check``
 (error-free residuals in the stopping check and a certificate of the
 polished point that can upgrade MaxIterations), ``kkt_refine_iters``
 (iterative refinement of each KKT solve) and ``adaptive_rho`` (per-member
 residual balancing with a refactorization at a check where some member
-adapts; per-problem factors on ``"torch"`` only).  The kernels run the
-loop without refinement, compensated checks or rho adaptation, as the
-Pallas kernels do; polish and the certificate run after them.
+adapts; per-problem factors on ``"torch"`` and ``"lane"`` only).  The
+``"cuda"`` kernels run the loop without refinement, compensated checks or
+rho adaptation, as the Pallas kernels do; the lane kernel runs all three.
+Polish and the certificate run after the loop on every backend.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 
 from .._precision import ieee_f32_matmul
 from ..utils.compensated import cdot, cmatvec, two_sum
+from ..utils.linalg import chol_lane, chol_solve_lane, mv_lane
 from .types import QPSolution, QPSolutionStatus, QPSolverParams, QuadraticProgram
 
 _RUNNING = int(QPSolutionStatus.Running)
@@ -70,17 +78,9 @@ def _mtv(M, v):
     return torch.einsum("bjk,bj->bk", M, v)
 
 
-def _not_ported(option: str, where: str):
-    raise NotImplementedError(
-        f"{option} is not ported to the PyTorch package yet ({where})"
-    )
-
-
 def _check_params(prm: QPSolverParams):
-    if prm.backend == "lane":
-        _not_ported("backend='lane'", "ROADMAP Queue 1 item 11")
-    if prm.backend not in ("torch", "cuda"):
-        raise ValueError(f"unknown backend {prm.backend!r} (use 'torch' or 'cuda')")
+    if prm.backend not in ("torch", "cuda", "lane"):
+        raise ValueError(f"unknown backend {prm.backend!r} (use 'torch', 'cuda' or 'lane')")
 
 
 # ------------------------------------------------------------------- scaling
@@ -423,12 +423,12 @@ def _finalize_solution(prm, P, q, A, l, u, c, sx, sy, x, y, status, iters, pres,
     )
 
 
-def _print_check(it, status, pres, dres):
+def _print_check(it, status, pres, dres, tag="qp"):
     """``verbose``: one host line a stopping check, the JAX package's fields
     (members still running; median and largest residuals)."""
     med = lambda r: float(torch.quantile(r.double(), 0.5))
     print(
-        f"[qp] iter {it}: running {int((status == _RUNNING).sum())}/{status.shape[0]}  "
+        f"[{tag}] iter {it}: running {int((status == _RUNNING).sum())}/{status.shape[0]}  "
         f"pres med {med(pres):.3e} max {float(pres.max()):.3e}  "
         f"dres med {med(dres):.3e} max {float(dres.max()):.3e}",
         flush=True,
@@ -561,6 +561,367 @@ def per_problem_kernel_args(
         return _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
 
 
+# --------------------------------------------- lane (batch-trailing) backend
+#
+# The JAX package's backend for fleets of tiny per-problem QPs (the ASIF
+# shape: n = nu + 1 variables, m ~ K rows) stores every matrix batch-TRAILING
+# (A as (m, n, B)) and runs scaling, factorization, the ADMM iteration and the
+# stopping checks in that layout.  The plain loop below keeps the layout and
+# the JAX package's order of operations, so its float64 rounding follows the
+# JAX package's; on CUDA tensors the loop runs as one launch of
+# csrc/admm_lane.cu instead (qp/cuda_kernel.py).
+
+
+def _ruiz_lane(Pt, qt, At, max_ruiz_iter: int = 10):
+    """Batch-trailing modified-Ruiz equilibration of ``(n, n, B)``, ``(n,
+    B)``, ``(m, n, B)`` stacks; each member stops sweeping on its own."""
+    dt, dev = Pt.dtype, Pt.device
+    n, _, B = Pt.shape
+    m = At.shape[0]
+
+    colnorm_P = Pt.abs().amax(dim=0)  # (n, B)
+    colnorm_P = torch.where(colnorm_P == 0, 1.0, colnorm_P)
+    floor = torch.tensor(1e-6, dtype=dt, device=dev)
+    c = 1.0 / torch.maximum(floor, torch.maximum(colnorm_P.mean(dim=0), qt.abs().amax(dim=0)))
+
+    sx = torch.ones((n, B), dtype=dt, device=dev)
+    sy = torch.ones((m, B), dtype=dt, device=dev)
+    err = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    it = 0
+    while it == 0 or (it <= max_ruiz_iter and bool((err > 0.1).any())):
+        active = torch.ones_like(err, dtype=torch.bool) if it == 0 else err > 0.1
+        Pn = (c[None, None, :] * sx[:, None, :] * sx[None, :, :] * Pt).abs()
+        An = (sy[:, None, :] * At * sx[None, :, :]).abs()
+        sx_inc = torch.maximum(Pn.amax(dim=0), An.amax(dim=0))  # (n, B)
+        sy_inc = An.amax(dim=1)  # (m, B)
+        sx_inc = torch.where(sx_inc == 0, 1.0, sx_inc)
+        sy_inc = torch.where(sy_inc == 0, 1.0, sy_inc)
+        err_new = torch.maximum(
+            (sx_inc - 1.0).abs().amax(dim=0), (sy_inc - 1.0).abs().amax(dim=0)
+        )
+        sx_new = sx * torch.rsqrt(torch.clamp(sx_inc, min=1e-8))
+        sy_new = sy * torch.rsqrt(torch.clamp(sy_inc, min=1e-8))
+        sx = torch.where(active[None, :], sx_new, sx)
+        sy = torch.where(active[None, :], sy_new, sy)
+        err = torch.where(active, err_new, err)
+        it += 1
+    return c, sx, sy
+
+
+def _lane_scaling(Pt, qt, At, lt, ut, prm):
+    """Scalings, per-row rho and the scaled matrices of a batch-trailing
+    fleet: ``(c, sx, sy, rho, Pst, Ast)``, unit scalings without
+    ``prm.scaling``."""
+    dt, dev = Pt.dtype, Pt.device
+    n, _, B = Pt.shape
+    m = At.shape[0]
+    inf = float("inf")
+    if prm.scaling:
+        c, sx, sy = _ruiz_lane(Pt, qt, At)
+    else:
+        c = torch.ones((B,), dtype=dt, device=dev)
+        sx = torch.ones((n, B), dtype=dt, device=dev)
+        sy = torch.ones((m, B), dtype=dt, device=dev)
+    # NaN (inf - inf) compares False => inequality row
+    unbounded = (lt == -inf) & (ut == inf)
+    eq = sy * (lt - ut).abs() < 1e-5
+    rho = torch.where(
+        unbounded,
+        torch.tensor(1e-6, dtype=dt, device=dev),
+        torch.where(
+            eq,
+            torch.tensor(prm.rho_eq_scale * prm.rho, dtype=dt, device=dev),
+            torch.tensor(prm.rho, dtype=dt, device=dev),
+        ),
+    )  # (m, B)
+    Pst = c[None, None, :] * sx[:, None, :] * sx[None, :, :] * Pt
+    Ast = sy[:, None, :] * At * sx[None, :, :]
+    return c, sx, sy, rho, Pst, Ast
+
+
+# Up to this n the lane factorization is the unrolled chol_lane /
+# chol_solve_lane on (B,)-vectors, as in the JAX package; above it the
+# reduced KKT matrix is factorized batch-leading and transposed back.
+_LANE_UNROLL_MAX = 32
+
+
+def _lane_chol_inverse(Pst, Ast, rho, sigma):
+    """Reduced-KKT ``Mred = Ps + sigma I + A' diag(rho) A`` and its inverse for
+    ``(n, n, B)`` / ``(m, n, B)`` stacks: ``(Mredt, Minvt, fact_fail)``; a
+    member whose Cholesky factor is not finite gets the identity factor."""
+    dt, dev = Pst.dtype, Pst.device
+    n, _, B = Pst.shape
+    eye = torch.eye(n, dtype=dt, device=dev)
+    if n <= _LANE_UNROLL_MAX:
+        ArA = ((Ast * rho[:, None, :])[:, :, None, :] * Ast[:, None, :, :]).sum(dim=0)
+        Mredt = Pst + sigma * eye[:, :, None] + ArA
+        L = chol_lane(Mredt)
+        fact_fail = ~torch.isfinite(L).all(dim=0).all(dim=0)  # (B,)
+        L = torch.where(fact_fail[None, None, :], eye[:, :, None], L)
+        Minvt = chol_solve_lane(L, eye[:, :, None].expand(n, n, B))
+        return Mredt, Minvt, fact_fail
+
+    # 32 < n: batch-leading factorization, lane iteration
+    A_bl = Ast.permute(2, 0, 1)  # (B, m, n)
+    Mred_bl = (
+        Pst.permute(2, 0, 1)
+        + sigma * eye[None]
+        + torch.einsum("bmi,bm,bmj->bij", A_bl, rho.T, A_bl)
+    )
+    L, info = torch.linalg.cholesky_ex(Mred_bl)
+    fact_fail = (info != 0) | ~torch.isfinite(L).all(dim=2).all(dim=1)
+    L = torch.where(fact_fail[:, None, None], eye[None], L)
+    Y = torch.linalg.solve_triangular(L, eye.expand(B, n, n), upper=False)
+    Minv_bl = torch.linalg.solve_triangular(L.mT, Y, upper=True)
+    return Mred_bl.permute(1, 2, 0), Minv_bl.permute(1, 2, 0), fact_fail
+
+
+def _stopping_check_lane(prm, Pt, qt, At, lt, ut, x_us, y_us, z_us, dx_us, dy_us):
+    """Batch-trailing :func:`_stopping_check` (the same certificates and
+    criteria); matrix stacks ``(k, j, B)``, vectors ``(k, B)``."""
+    eps_abs, eps_rel = prm.eps_abs, prm.eps_rel
+    eps_pinf, eps_dinf = prm.eps_primal_inf, prm.eps_dual_inf
+    ninf = lambda v: v.abs().amax(dim=0)  # (k, B) -> (B,)
+    A_mv = lambda xv: (At * xv[None, :, :]).sum(dim=1)  # (m, B)
+    AT_mv = lambda v: (At * v[:, None, :]).sum(dim=0)  # (n, B)
+
+    diverged = ~(torch.isfinite(x_us).all(dim=0) & torch.isfinite(y_us).all(dim=0))
+
+    if prm.compensated_check:
+        Ax, Ax_lo = cdot(At, x_us[None, :, :], dim=1)  # (m, B)
+        s, e = two_sum(Ax, -z_us)
+        pres = ninf(s + (e + Ax_lo))
+        Px, Px_lo = cdot(Pt, x_us[None, :, :], dim=1)  # (n, B)
+        Aty, Aty_lo = cdot(At, y_us[:, None, :], dim=0)  # (n, B)
+        s, e = two_sum(Px, Aty)
+        s2, e2 = two_sum(s, qt)
+        dres = ninf(s2 + (e2 + e + Px_lo + Aty_lo))
+    else:
+        Ax = A_mv(x_us)
+        pres = ninf(Ax - z_us)
+        Px = mv_lane(Pt, x_us)
+        Aty = AT_mv(y_us)
+        dres = ninf(Px + qt + Aty)
+    pscale = torch.maximum(ninf(Ax), ninf(z_us))
+    prim_ok = pres <= eps_abs + eps_rel * pscale
+    dscale = torch.maximum(ninf(Px), torch.maximum(ninf(qt), ninf(Aty)))
+    dual_ok = dres <= eps_abs + eps_rel * dscale
+
+    # normalized-residual balance for adaptive rho (OSQP sec. 5.2)
+    tiny = torch.finfo(x_us.dtype).tiny
+    pn = pres / torch.clamp(pscale, min=tiny)
+    dn = dres / torch.clamp(dscale, min=tiny)
+    ratio = torch.where((pn > 0) & (dn > 0), pn / torch.clamp(dn, min=tiny), 1.0)
+
+    optimal = prim_ok & dual_ok
+
+    E = ninf(dy_us)
+    Atdy = AT_mv(dy_us)
+    u_inf = torch.isinf(ut)
+    l_inf = torch.isinf(lt)
+    viol = (
+        (u_inf & (dy_us > eps_pinf * E[None, :])) | (l_inf & (dy_us < -eps_pinf * E[None, :]))
+    ).any(dim=0)
+    sum_term = (
+        torch.where(u_inf, 0.0, ut * torch.clamp(dy_us, min=0.0))
+        + torch.where(l_inf, 0.0, lt * torch.clamp(dy_us, max=0.0))
+    ).sum(dim=0)
+    prim_inf = ~viol & (torch.maximum(ninf(Atdy), sum_term) < eps_pinf * E)
+
+    dxn = ninf(dx_us)
+    Pdx = mv_lane(Pt, dx_us)
+    Adx = A_mv(dx_us)
+    tol = eps_dinf * dxn[None, :]
+    row_ok = torch.where(
+        u_inf, Adx >= -tol, torch.where(l_inf, Adx <= tol, Adx.abs() < tol)
+    ).all(dim=0)
+    dual_inf = (
+        (ninf(Pdx) <= eps_dinf * dxn)
+        & ((qt * dx_us).sum(dim=0) <= eps_dinf * dxn)
+        & row_ok
+    )
+
+    B = x_us.shape[1]
+    st = torch.full((B,), _RUNNING, dtype=torch.int32, device=x_us.device)
+    st = torch.where(dual_inf, _DUAL_INF, st)
+    st = torch.where(prim_inf, _PRIMAL_INF, st)
+    st = torch.where(optimal, _OPTIMAL, st)
+    st = torch.where(diverged, _UNKNOWN, st).to(torch.int32)
+    return st, pres, dres, ratio
+
+
+def _lane_loop(prm, Pt, qt, At, lt, ut, c, sx, sy, rho, Pst, Ast, Mredt, Minvt, qs, ls, us,
+               x, z, y, status, member_refactor=False):
+    """The lane backend's ADMM loop on batch-trailing stacks (vectors ``(k,
+    B)``), from the scaled iterates ``x, z, y`` and initial statuses.
+
+    With ``prm.adaptive_rho``, every member still running whose residual
+    balance leaves the tolerance band takes ``rho <- rho sqrt(ratio)``
+    (clipped to [1e-6, 1e6], pinned rows at 1e-6); as in the JAX package the
+    whole fleet is then refactorized at that rho, and a member whose factor
+    is not finite keeps its previous rho and factors.  ``member_refactor``
+    refactorizes the adapting members alone, as the lane kernel does: the
+    other members keep their rho and factors.
+
+    Returns ``(x, z, y, status, iters, pres, dres, refactors)``, with
+    Running turned into MaxIterations and ``refactors`` the refactorizations
+    each member's adaptation asked for."""
+    dt, dev = qs.dtype, qs.device
+    B = qs.shape[1]
+    inf = float("inf")
+    As_mv = lambda xv: (Ast * xv[None, :, :]).sum(dim=1)  # (m, B)
+    AsT_mv = lambda v: (Ast * v[:, None, :]).sum(dim=0)  # (n, B)
+    n_refine = max(0, prm.kkt_refine_iters)
+
+    def Msolve(Minvt_, Mredt_, r):
+        t = mv_lane(Minvt_, r)
+        for _ in range(n_refine):
+            t = t + mv_lane(Minvt_, r - mv_lane(Mredt_, t))
+        return t
+
+    alpha = prm.alpha
+    # rows whose rho is pinned (unbounded) never adapt
+    rho_pinned = (lt == -inf) & (ut == inf)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    refactors = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pres = torch.full((B,), inf, dtype=dt, device=dev)
+    dres = torch.full((B,), inf, dtype=dt, device=dev)
+    ones = torch.ones((B,), dtype=dt, device=dev)
+    k = prm.stop_check_iter
+    it = 0
+    while it < prm.max_iter and bool((status == _RUNNING).any()):
+        x_old, y_old = x, y
+        rhs = prm.sigma * x - qs + AsT_mv(rho * z - y)
+        xt = Msolve(Minvt, Mredt, rhs)
+        zt = As_mv(xt)
+
+        xn = alpha * xt + (1 - alpha) * x
+        zn = torch.clamp(alpha * zt + (1 - alpha) * z + y / rho, ls, us)
+        yn = y + rho * (alpha * zt + (1 - alpha) * z - zn)
+
+        # == (1 % k) so stop_check_iter == 1 means "every iteration"
+        if it % k == 1 % k:
+            new_status, pres_n, dres_n, ratio = _stopping_check_lane(
+                prm, Pt, qt, At, lt, ut, sx * xn, sy * yn / c[None, :], zn / sy,
+                sx * (xn - x_old), sy * (yn - y_old) / c[None, :],
+            )
+            if prm.verbose:
+                _print_check(it, new_status, pres_n, dres_n, tag="qp/lane")
+        else:
+            new_status = torch.full((B,), _RUNNING, dtype=torch.int32, device=dev)
+            pres_n, dres_n, ratio = pres, dres, ones
+
+        run = status == _RUNNING
+        runc = run[None, :]
+        x = torch.where(runc, xn, x)
+        z = torch.where(runc, zn, z)
+        y = torch.where(runc, yn, y)
+        status = torch.where(run, new_status, status)
+        iters = torch.where(run, it + 1, iters).to(torch.int32)
+        pres = torch.where(run, pres_n, pres)
+        dres = torch.where(run, dres_n, dres)
+
+        if prm.adaptive_rho:
+            # residual balancing (OSQP sec. 5.2): rho <- rho sqrt(pres_n /
+            # dres_n) for the members still running whose imbalance leaves
+            # the tolerance band (ratio is 1 between checks)
+            mult = torch.sqrt(ratio)
+            tol = prm.adaptive_rho_tol
+            adapt = (new_status == _RUNNING) & run & ((mult > tol) | (mult < 1.0 / tol))
+            if bool(adapt.any()):
+                mult = torch.where(adapt, mult, 1.0)
+                rho_new = torch.clamp(rho * mult[None, :], 1e-6, 1e6)
+                rho_new = torch.where(rho_pinned, 1e-6, rho_new)
+                Mred_n, Minv_n, bad = _lane_chol_inverse(Pst, Ast, rho_new, prm.sigma)
+                # a failed refactorization keeps the previous rho and factors
+                keep = (bad | ~adapt) if member_refactor else bad
+                rho = torch.where(keep[None, :], rho, rho_new)
+                Mredt = torch.where(keep[None, None, :], Mredt, Mred_n)
+                Minvt = torch.where(keep[None, None, :], Minvt, Minv_n)
+                refactors = refactors + adapt.to(torch.int32)
+        it += 1
+
+    status = torch.where(status == _RUNNING, _MAX_ITER, status).to(torch.int32)
+    return x, z, y, status, iters, pres, dres, refactors
+
+
+def _lane_inputs(prm, P, q, A, l, u, warmstart, factors):
+    """The lane loop's inputs, batch-leading: ``(P, q, A, l, u, c, sx, sy,
+    rho, Ps, As, Mred, Minv, qs, ls, us, x0, z0, y0, status0)``.  Without
+    ``factors`` the scalings and scaled matrices come from the batch-trailing
+    :func:`_lane_scaling` (as views) and ``Mred``, ``Minv`` are None: the
+    loop factorizes first, and a member whose factor fails starts Unknown."""
+    if factors is None:
+        c, sx, sy, rho, Pst, Ast = _lane_scaling(
+            P.permute(1, 2, 0), q.T, A.permute(1, 2, 0), l.T, u.T, prm
+        )
+        ok = torch.ones_like(c, dtype=torch.bool)
+        factors = QPFactors(c, sx.T, sy.T, rho.T, Pst.permute(2, 0, 1), Ast.permute(2, 0, 1),
+                            None, None, ok)
+    _, _, _, qs, ls, us, x0, z0, y0, status0 = _scaled_inputs(
+        A, q, l, u, factors, warmstart, False
+    )
+    c, sx, sy, rho, Ps, As, Mred, Minv, _ = factors
+    return P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us, x0, z0, y0, status0
+
+
+def lane_kernel_args(
+    qp: QuadraticProgram,
+    factors: Optional[QPFactors] = None,
+    warmstart: Optional[QPSolution] = None,
+    prm: QPSolverParams = QPSolverParams(),
+):
+    """What :func:`solve_qp_batch` on ``backend="lane"`` hands
+    ``admm_iterate_cuda_lane`` after ``prm`` for a batch ``qp`` against
+    per-problem ``factors`` (``Mred`` and ``Minv`` given) or none (then the
+    scalings and per-row rho alone, and the kernel factorizes): contiguous
+    float32 (int32 statuses), ``None`` for factors not given.  The plain
+    version ``admm_iterate_lane_reference`` takes the same arguments."""
+    P, q, A, l, u, shared = _batch_view(qp, factors)
+    if shared:
+        raise ValueError("lane_kernel_args needs per-problem factors (or none)")
+    with ieee_f32_matmul():
+        args = _lane_inputs(prm, P, q, A, l, u, warmstart, factors)
+    return _lane_f32(args)
+
+
+def _lane_f32(args):
+    f32 = lambda a: None if a is None else (
+        a.contiguous() if a.dtype == torch.int32 else a.to(torch.float32).contiguous()
+    )
+    return tuple(f32(a) for a in args)
+
+
+# lane solves on CUDA tensors that ran the plain lane loop on the card
+# because the lane kernel cannot hold their shape (nothing launched)
+lane_fallthroughs = 0
+
+
+def _solve_qp_batch_lane(prm, P, q, A, l, u, warmstart, factors):
+    """The lane backend: the plain loop on CPU tensors, one launch of the
+    lane kernel on CUDA tensors (or, for a shape the kernel cannot hold,
+    decided before anything launches, the plain loop on the card: one
+    ``lane_fallthroughs``); finalize and polish batch-leading."""
+    global lane_fallthroughs
+    from .cuda_kernel import admm_iterate_cuda_lane, admm_iterate_lane_reference, lane_fits
+
+    dt = A.dtype
+    B, m, n = A.shape
+    args = _lane_inputs(prm, P, q, A, l, u, warmstart, factors)
+    if A.device.type == "cuda" and lane_fits(n, m):
+        out = admm_iterate_cuda_lane(prm, *_lane_f32(args))
+    else:
+        if A.device.type == "cuda":
+            lane_fallthroughs += 1
+        out = admm_iterate_lane_reference(prm, *args)
+    x, _, y, status, iters, pres, dres, _ = out
+    c, sx, sy = args[5:8]
+    return _finalize_solution(
+        prm, P, q, A, l, u, c, sx, sy, x.to(dt), y.to(dt), status, iters, pres.to(dt),
+        dres.to(dt),
+    )
+
+
 # shared-factor solves on backend="cuda" that ran the torch shared loop
 # because the shared kernel cannot hold their shape (nothing launched)
 shared_fallthroughs = 0
@@ -571,10 +932,13 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
     P, q, A, l, u, shared = _batch_view(qp, factors)
     if prm.adaptive_rho and (prm.backend == "cuda" or shared):
         raise ValueError(
-            "adaptive_rho requires per-problem factors on backend='torch' (shared-factor "
-            "batches share one rho across the fleet, and the CUDA kernels keep their "
-            "factorization on chip)"
+            "adaptive_rho requires per-problem factors on backend='torch' or 'lane' "
+            "(shared-factor batches share one rho across the fleet, and the 'cuda' "
+            "kernels keep their factorization on chip)"
         )
+    if prm.backend == "lane" and not shared:
+        # shared-factor batches on "lane" take the torch shared loop below
+        return _solve_qp_batch_lane(prm, P, q, A, l, u, warmstart, factors)
     dt, dev = A.dtype, A.device
     B = q.shape[0]
     inf = float("inf")

@@ -86,9 +86,10 @@ def test_asif_transcription_matches_jax_f64():
             np.testing.assert_allclose(tfa[b].numpy(), a.numpy(), atol=1e-12, rtol=0, err_msg=name)
 
 
-def _di_filter(backend):
+def _di_filter(backend, port_backend="torch"):
     """tests/test_asif.py's double integrator with barrier h = position and
-    a backup law that brakes, in both packages (K = 5, T = 1)."""
+    a backup law that brakes, in both packages (K = 5, T = 1): JAX's on
+    ``backend``, the port's on ``port_backend``."""
     jstep = j_make_asif_step(
         JRn(2), JRn(1), lambda x, u: jnp.stack([x[1], u[0]]),
         lambda t, x: jnp.stack([x[0]]), lambda t, x: jnp.array([1.0]),
@@ -102,6 +103,7 @@ def _di_filter(backend):
         lambda t, x: x[:1], lambda t, x: torch.ones(1, dtype=x.dtype),
         params=ASIFilterParams(T=1.0, asif=ASIFtoQPParams(K=5), qp=QPSolverParams(
             eps_abs=1e-8, eps_rel=1e-8, adaptive_rho=True, polish=False, max_iter=20000,
+            backend=port_backend,
         )),
         device="cpu",
     )
@@ -111,30 +113,35 @@ def _di_filter(backend):
 def test_asif_step_and_fleet_match_jax():
     """make_asif_step at tight tolerance with adaptive rho (the mirror of
     tests/test_asif.py::test_fleet_lane_adaptive_matches_xla): the port's
-    step.fleet on "torch" against JAX's on "lane" (the bench's backend) and
-    on "xla".  Statuses equal and Optimal, iteration counts equal to the xla
-    path's, filtered u within 1e-9 of both (f64; JAX's own lane/xla pair
-    agrees to 1e-9 here); step is step.fleet at B = 1."""
-    (jl, jws0), (tstep, tws0) = _di_filter("lane")
+    step.fleet on "torch" and on "lane" (the bench's backend) against JAX's
+    on "lane" and on "xla".  Statuses equal and Optimal, iteration counts
+    equal to the xla path's, filtered u within 1e-9 of both (f64; JAX's own
+    lane/xla pair agrees to 1e-9 here); step is step.fleet at B = 1."""
+    (jl, jws0), _ = _di_filter("lane")
     (jx, _), _ = _di_filter("xla")
     B = 8
     xs = np.stack([np.array([1.0 + 0.1 * i, -0.2]) for i in range(B)])
     xs[::2, 1] = -1.5  # half the fleet heading for the barrier
     uds = -0.5 * np.ones((B, 1))
     jw = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), jws0)
-    tw = type(tws0)(*(a.expand((B,) + a.shape) for a in tws0))
-    rt = tstep.fleet(tw, torch.as_tensor(xs), torch.as_tensor(uds))
-    assert bool((rt.status == QPSolutionStatus.Optimal).all())
-    for jfleet in (jl.fleet, jx.fleet):
-        rj = jax.jit(jfleet)(jw, jnp.asarray(xs), jnp.asarray(uds))
-        np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
-        np.testing.assert_allclose(rt.u.numpy(), np.asarray(rj.u), atol=1e-9, rtol=0)
-    np.testing.assert_array_equal(rt.warmstart.iters.numpy(), np.asarray(rj.warmstart.iters))
-    assert float(np.abs(rt.u.numpy() - uds).max()) > 0.1  # the filter acts on some members
+    rjs = [jax.jit(jfleet)(jw, jnp.asarray(xs), jnp.asarray(uds)) for jfleet in (jl.fleet, jx.fleet)]
+    for port_backend in ("torch", "lane"):
+        _, (tstep, tws0) = _di_filter("xla", port_backend)
+        tw = type(tws0)(*(a.expand((B,) + a.shape) for a in tws0))
+        rt = tstep.fleet(tw, torch.as_tensor(xs), torch.as_tensor(uds))
+        assert bool((rt.status == QPSolutionStatus.Optimal).all())
+        for rj in rjs:
+            np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
+            np.testing.assert_allclose(rt.u.numpy(), np.asarray(rj.u), atol=1e-9, rtol=0)
+        np.testing.assert_array_equal(rt.warmstart.iters.numpy(),
+                                      np.asarray(rjs[-1].warmstart.iters))
+        assert float(np.abs(rt.u.numpy() - uds).max()) > 0.1  # the filter acts on some members
 
-    r1 = tstep(tws0, torch.as_tensor(xs[2]), torch.as_tensor(uds[2]))
-    torch.testing.assert_close(r1.u, rt.u[2], rtol=0, atol=0)
-    assert int(r1.status) == int(rt.status[2])
+        r1 = tstep(tws0, torch.as_tensor(xs[2]), torch.as_tensor(uds[2]))
+        # the lane loop reduces over a trailing batch axis, whose length sets
+        # torch's summation order: B = 1 lands within rounding of the fleet
+        torch.testing.assert_close(r1.u, rt.u[2], rtol=0, atol=0 if port_backend == "torch" else 1e-12)
+        assert int(r1.status) == int(rt.status[2])
 
 
 def test_asif_filter_class_matches_jax():

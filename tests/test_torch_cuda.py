@@ -588,3 +588,154 @@ def test_shared_factors_past_the_kernel_run_the_torch_loop(dev):
     r = solve_qp_batch(qp, QPSolverParams(backend="torch", polish=False), factors=f)
     assert torch.equal(k.status, r.status) and torch.equal(k.iters, r.iters)
     assert bool((k.status == 0).all())
+
+
+# ------------------------------------------------------------ the lane kernel
+
+
+def _lane_inputs(n, m, B, prm, dev, seed=0):
+    """The lane kernel's float32 arguments for B of benchmarks/qp_bench.py's
+    random QPs (chip_smoke.lane_family, density 0.3), as solve_qp_batch on
+    "lane" prepares them (the kernel factorizes)."""
+    from chip_smoke import lane_family
+    from smooth_feedback_tpu_torch.qp import lane_kernel_args
+
+    qp = qp_from_numpy(lane_family(n, m, B, 0.3, seed), device=dev, dtype=torch.float32)
+    return lane_kernel_args(qp, None, None, prm)
+
+
+def _f64(args):
+    return tuple(a.double() if a is not None and a.dtype == torch.float32 else a for a in args)
+
+
+def test_lane_kernel_fixed_iterations_match_plain_version(dev):
+    """admm_lane at the ASIF's (3, 53), B = 256, adaptive rho off, every
+    tolerance 0, 20 iterations from a seeded random start: every member runs
+    them in both; each vector within 1e-4 of its scale plus twice the f32
+    plain version's distance from its f64 run (chip_smoke's bound)."""
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_lane, admm_iterate_lane_reference
+
+    prm = QPSolverParams(polish=False, rho=0.02, max_iter=20, stop_check_iter=10, eps_abs=0.0,
+                         eps_rel=0.0, eps_primal_inf=0.0, eps_dual_inf=0.0, backend="lane")
+    args = list(_lane_inputs(3, 53, 256, prm, dev))
+    rng = np.random.default_rng(1)
+    for i in (16, 17, 18):  # x0, z0, y0
+        args[i] = torch.as_tensor(0.1 * rng.standard_normal(tuple(args[i].shape)),
+                                  dtype=torch.float32, device=dev)
+    admm_iterate_cuda_lane.launches = 0
+    k = admm_iterate_cuda_lane(prm, *args)
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda_lane.launches == 1
+    r = admm_iterate_lane_reference(prm, *args)
+    d = admm_iterate_lane_reference(prm, *_f64(args))
+    for o in (k, r):
+        assert bool((o[3] == QPSolutionStatus.MaxIterations).all() and (o[4] == 20).all())
+    for kt, rt, dt in zip(k[:3], r[:3], d[:3]):
+        floor = float((rt.double() - dt).abs().max())
+        scale = max(1.0, float(dt.abs().max()))
+        assert float((kt - rt).abs().max()) <= 1e-4 * scale + 2 * floor
+
+
+@pytest.mark.parametrize("n,m,B,opts", [
+    (3, 53, 256, dict(adaptive_rho=True, rho=0.02, max_iter=250, stop_check_iter=10)),  # the ASIF's
+    (32, 256, 64, dict(adaptive_rho=True, max_iter=1000)),  # refactorizations at n = 32
+    (96, 96, 64, dict(compensated_check=True, max_iter=4000)),
+])
+def test_lane_kernel_solves_match_plain_version(dev, n, m, B, opts):
+    """Whole solves through admm_lane against its plain version (f32,
+    refactorizing the adapting members alone, as the kernel does) and its
+    f64 run, by chip_smoke.lane_compare's rule: statuses equal to the f64
+    run's on as many members as the f32 plain version's, less max(1, B /
+    128).  Static rho: iteration counts equal to the f32 plain version's on
+    99.5 % of members, or as often equal to the f64 run's as the f32 plain
+    version's (within half a point), and where they agree the unscaled
+    primal within 1e-4 of each member's scale plus twice the plain version's
+    distance from f64.  Adaptive rho (discrete decisions from f32
+    residuals: two f32 runs take other rho paths to other points within
+    eps): iteration and refactorization counts equal to the f64 run's on as
+    many members as the f32 plain version's, less max(1, B / 32), and the
+    kernel refactorized.  Every member the kernel calls Optimal satisfies
+    the stopping test in f64 (1e-4 slack)."""
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_lane, admm_iterate_lane_reference
+
+    prm = QPSolverParams(polish=False, backend="lane", **opts)
+    args = _lane_inputs(n, m, B, prm, dev, seed=n + m)
+    admm_iterate_cuda_lane.launches = 0
+    k = admm_iterate_cuda_lane(prm, *args)
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda_lane.launches == 1
+    r = admm_iterate_lane_reference(prm, *args, member_refactor=True)
+    d = admm_iterate_lane_reference(prm, *_f64(args), member_refactor=True)
+    assert int((k[3] == d[3]).sum()) >= int((r[3] == d[3]).sum()) - max(1, B // 128)
+    share = lambda mask: float(mask.float().mean())
+    sx = args[6].double()
+    if opts.get("adaptive_rho"):
+        for i in (4, 7):
+            assert int((k[i] == d[i]).sum()) >= int((r[i] == d[i]).sum()) - max(1, B // 32), i
+        assert int(k[7].sum()) > 0  # the kernel refactorized
+    else:
+        kr, kd, rd = share(k[4] == r[4]), share(k[4] == d[4]), share(r[4] == d[4])
+        assert kr >= 0.995 or (rd < 0.995 and kd >= rd - 0.005), (kr, kd, rd)
+        xk, xr, xd = (o[0].double() * sx for o in (k, r, d))
+        bound = 1e-4 * xd.abs().amax(dim=1).clamp(min=1.0) + 2 * (xr - xd).abs().amax(dim=1)
+        assert bool(((xk - xr).abs().amax(dim=1) <= bound)[k[4] == r[4]].all())
+    # the kernel's Optimal points, re-checked in f64 on the unscaled data
+    P, q, A = (a.double() for a in args[:3])
+    c, sy = args[5].double()[:, None], args[7].double()
+    x, z, y = k[0].double() * sx, k[1].double() / sy, k[2].double() * sy / c
+    Ax = torch.einsum("bmn,bn->bm", A, x)
+    Px = torch.einsum("bij,bj->bi", P, x)
+    Aty = torch.einsum("bmn,bm->bn", A, y)
+    ninf = lambda v: v.abs().amax(dim=1)
+    pres, dres = ninf(Ax - z), ninf(Px + q + Aty)
+    ptol = prm.eps_abs + prm.eps_rel * torch.maximum(ninf(Ax), ninf(z)) + 1e-4
+    dtol = prm.eps_abs + prm.eps_rel * torch.maximum(ninf(Px), torch.maximum(ninf(q), ninf(Aty))) + 1e-4
+    opt = k[3] == QPSolutionStatus.Optimal
+    assert bool(opt.any()) and bool(((pres <= ptol) & (dres <= dtol))[opt].all())
+
+
+def test_lane_plan_matches_the_library(dev):
+    """lane_plan mirrors admm_lane_plan of the built library at the smoke's
+    shapes, and n = m = 128 fits neither."""
+    import ctypes
+
+    from smooth_feedback_tpu_torch import _build
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import lane_fits, lane_plan
+
+    lib = _build.load()
+    out = (ctypes.c_int * 2)()
+    for B, n, m in [(256, 3, 53), (256, 8, 8), (256, 32, 32), (256, 96, 96), (256, 3, 24),
+                    (64, 32, 256), (1, 3, 53), (4096, 3, 53)]:
+        assert lib.admm_lane_plan(B, n, m, out) == 1
+        assert tuple(out) == lane_plan(B, n, m)
+    assert lib.admm_lane_plan(4, 128, 128, out) == 0 and not lane_fits(128, 128)
+
+
+def test_lane_route_on_card(dev):
+    """solve_qp_batch on "lane" with CUDA tensors: one admm_lane launch for
+    a shape the kernel holds, the statuses and counts of that launch; for
+    n = m = 128 the plain lane loop on the card, one lane_fallthroughs,
+    nothing launched."""
+    from chip_smoke import lane_family
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_lane, lane_kernel_args
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
+
+    prm = QPSolverParams(max_iter=4000, polish=False, adaptive_rho=True, backend="lane")
+    qp = qp_from_numpy(lane_family(3, 24, 256, 0.3, 5), device=dev, dtype=torch.float32)
+    admm_iterate_cuda_lane.launches = 0
+    sol = solve_qp_batch(qp, prm)
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda_lane.launches == 1
+    k = admm_iterate_cuda_lane(prm, *lane_kernel_args(qp, None, None, prm))
+    torch.cuda.synchronize()
+    assert torch.equal(sol.status, k[3]) and torch.equal(sol.iters, k[4])
+
+    qp = qp_from_numpy(lane_family(128, 128, 4, 0.3, 6), device=dev, dtype=torch.float32)
+    falls = qsolver.lane_fallthroughs
+    admm_iterate_cuda_lane.launches = admm_iterate_cuda.launches = admm_iterate_cuda_shared.launches = 0
+    sol = solve_qp_batch(qp, QPSolverParams(max_iter=4000, polish=False, backend="lane"))
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda_lane.launches == admm_iterate_cuda.launches == 0
+    assert admm_iterate_cuda_shared.launches == 0
+    assert qsolver.lane_fallthroughs == falls + 1
+    assert bool(torch.isfinite(sol.primal).all())

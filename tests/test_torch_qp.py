@@ -149,8 +149,9 @@ def test_warmstart_like_matches_jax():
 
 def test_solve_qp_single_and_unported_options():
     """The unbatched wrapper solves a box QP, with and without polish (the
-    default, which lands on the exact solution), also with verbose on; the
-    option still unported (backend="lane") raises NotImplementedError."""
+    default, which lands on the exact solution), also with verbose on; every
+    option is ported now: backend="lane" solves it too (its plain loop on
+    the CPU), and only an unknown backend raises."""
     qp = qp_from_numpy((np.eye(2), [-4.0, 0.25], np.eye(2), [-1.0, -1.0], [1.0, 1.0]))
     sol = solve_qp(qp, QPSolverParams(polish=False))
     assert int(sol.status) == QPSolutionStatus.Optimal
@@ -161,8 +162,11 @@ def test_solve_qp_single_and_unported_options():
     loud = solve_qp(qp, QPSolverParams(polish=False, verbose=True))
     torch.testing.assert_close(loud.primal, solve_qp(qp, QPSolverParams(polish=False)).primal,
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        solve_qp(qp, QPSolverParams(polish=False, backend="lane"))
+    lane = solve_qp(qp, QPSolverParams(polish=False, backend="lane"))
+    assert int(lane.status) == QPSolutionStatus.Optimal
+    np.testing.assert_allclose(lane.primal.numpy(), [1.0, -0.25], atol=1e-3)
+    with pytest.raises(ValueError, match="unknown backend"):
+        solve_qp(qp, QPSolverParams(polish=False, backend="pallas"))
 
 
 # ------------------------------------------------------- kernel module, f32

@@ -7,7 +7,8 @@ Initial states come from numpy with a seed and go to both packages.  The
 JAX side runs as asif_bench.py configures it (MPC on "pallas", the shared
 kernel in interpret mode; ASIF on "lane" with adaptive rho); the port runs
 its MPC on "cuda" (the shared kernel's wrapper runs its plain version on CPU
-tensors) and its ASIF on "torch" with adaptive rho.
+tensors) and its ASIF on "lane" with adaptive rho (the lane loop on CPU
+tensors; on the card, the lane kernel).
 """
 
 import functools
@@ -38,7 +39,9 @@ from smooth_feedback_tpu_torch.controllers import (
     make_mpc_step,
 )
 from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
-from smooth_feedback_tpu_torch.qp import QPSolutionStatus, QPSolverParams, admm_iterate_cuda_shared
+from smooth_feedback_tpu_torch.qp import (
+    QPSolutionStatus, QPSolverParams, admm_iterate_cuda_lane, admm_iterate_cuda_shared,
+)
 
 torch.set_num_threads(1)
 
@@ -116,7 +119,7 @@ def torch_fleet(dtype=torch.float32, mpc_backend="cuda"):
         X, U, f, h, bu,
         params=ASIFilterParams(
             T=ASIF_T, asif=ASIFtoQPParams(K=ASIF_K, dt=0.05, alpha=2.0, relax_cost=1000.0),
-            qp=QPSolverParams(**ASIF_QP),
+            qp=QPSolverParams(**ASIF_QP, backend="lane"),
         ),
         W_u=[20.0, 1.0], ulim=bounds_from_numpy(ULIM, dtype=dtype), **kw,
     )
@@ -133,7 +136,7 @@ def test_closed_loop_mpc_asif_fleet_f32():
     that 1e-4, weighted up to sqrt(20) by W_u = (20, 1)) and its transcription
     integrates 5 sensitivity steps in f32 on each side; the states integrate
     the filtered u over DT = 0.025.  Every post-step barrier is positive in
-    both, as the bench's gate requires, and the MPC launched no kernel."""
+    both, as the bench's gate requires, and nothing launched a kernel."""
     B, steps = 4, 4
     JX, jf, jh, jmpc, jmws, jasif, jaws = jax_fleet()
     X, f, h, mpc, mws, asif, aws = torch_fleet()
@@ -155,7 +158,7 @@ def test_closed_loop_mpc_asif_fleet_f32():
         x = jax.vmap(lambda xi, ui: JX.rplus(xi, DT * jf(xi, ui)))(x, a.u)
         return x, m, a
 
-    admm_iterate_cuda_shared.launches = 0
+    admm_iterate_cuda_shared.launches = admm_iterate_cuda_lane.launches = 0
     for i in range(steps):
         t = DT * i
         jx, jm, ja = jstep(jx, jmws, jaws, t)
@@ -172,4 +175,4 @@ def test_closed_loop_mpc_asif_fleet_f32():
         hmin = float(vmap(lambda xi: h(t, xi))(tx).min())
         assert hmin > 0.0
         jmws, jaws, mws, aws = jm.warmstart, ja.warmstart, m.warmstart, a.warmstart
-    assert admm_iterate_cuda_shared.launches == 0
+    assert admm_iterate_cuda_shared.launches == admm_iterate_cuda_lane.launches == 0
