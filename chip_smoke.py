@@ -38,6 +38,15 @@ kernels:
   8, 32, 96, density 0.3) and a (3, 24) family with adaptive rho and
   compensated checks through the lane kernel; n = m = 128 on the plain
   lane loop (the counted fall-through).
+- examples_torch/, the port's examples: the four whose problems the
+  phases above build come from those files (pid_se2, output_feedback_vehicle,
+  ocp_se2_nlp, ocp_se2_qp); the other nine run in the examples phase, each
+  through its kernel route: the SE(3) x R^6 hover MPC (admm_problem), the
+  SE(3) x R^3 OCP fleet with mesh refinement (B = 8, admm_problem), the
+  condensed double-integrator MPC at B = 1 (admm_shared), the
+  double-integrator ASIF (admm_lane), the vehicle MPC + ASIF (admm_problem,
+  admm_lane), the double-integrator OCP as one QP (admm_problem) and as an
+  NLP with refinement (admm_problem), and the two EKF examples.
 
 Phases:
 
@@ -83,6 +92,12 @@ Phases:
      its plain version on the second pass's first subproblem batch;
      ocp-solve and ocp-qp: the single OCP's passes against the JAX
      package's and its start, the QP's x(t) against the torch loop's;
+     examples: each of the nine at its own width, its depth cut where it
+     says so, with its own assertions, its launches, its states held to a
+     float64 run on the CPU, the kernels at its QPs (for the two
+     refinement examples at each pass's first subproblem batch; for the
+     SE(3) fleet also each pass's error estimate against its float64
+     recomputation and every member's KKT residual in float64);
   6. a JSON line of the kernels (with each one's bound on this card, its
      launches on each path and the shapes it was held at), the card's name
      and power limit, then the result line.
@@ -101,6 +116,16 @@ import time
 
 import numpy as np
 import torch
+
+from examples_torch._common import card_qp_params
+from examples_torch.mpc_asif_vehicle import asif_filter, f as vehicle_asif_f
+from examples_torch.ocp_se2_nlp import ocp_example, se2_tracking
+from examples_torch.ocp_se2_qp import ocp_qp_problem
+from examples_torch.output_feedback_vehicle import (
+    DT as OF_DT, output_feedback_path, output_feedback_start, output_feedback_step,
+)
+from examples_torch.pid_se2 import PID_DT, PID_STEPS
+from smooth_feedback_tpu_torch.utils.flops import H100_PEAK_F32
 
 B = 8192
 K = 50
@@ -124,9 +149,10 @@ ASIF_STEPS = 20  # 40 before the refinement phases joined the smoke
 ASIF_PLAIN_STEPS = 5
 ASIF_T = 2.5
 
-# benchmarks/ekf_bench.py's fleets, nothing cut
+# benchmarks/ekf_bench.py's fleets at its B; its 100 chained steps cut to
+# 50 for the smoke's time when the examples joined it
 EKF_B = 4096
-EKF_STEPS = 100
+EKF_STEPS = 50
 EKF_REPS = 2  # ekf_bench.py takes the best of 3
 EKF_TAU = 0.05
 EKF_CHECK_STEPS = 10
@@ -136,8 +162,6 @@ EKF_CPU_STEPS = 3
 OF_STEPS = 20  # 40 before the refinement phases joined the smoke
 OF_PLAIN_STEPS = 5
 OF_KERNEL_STEPS = 10
-OF_DT = 0.025
-OF_LANDMARKS = ((3.0, 1.0), (-2.0, 4.0), (1.0, -3.0), (4.0, -1.0))
 
 # benchmarks/ocp_se2.py's on-device protocol (the JAX package's BASELINE
 # config 5): B = 64 flat SE(2) x R^2 OCPs on Mesh.uniform(3, 5), f32
@@ -223,29 +247,6 @@ def ocp_sweep_velocities(B_=OCP_B, seed=SEED):
     return np.stack([1.0 + 0.3 * a, np.zeros(B_), 0.5 + 0.2 * b], axis=1)
 
 
-def se2_tracking(vel):
-    """examples/ocp_se2.hpp's vehicle tracking the screw ``vel`` (3,):
-    ``(X, U, f, g)`` with X = SE(2) x R^2 (pose and the speeds along the
-    screw), U = R^2 (their rates), f the body velocity and g the running
-    cost |x (-) xdes(t)|^2/2 + |u|^2/2 against xdes(t) = (exp(t vel),
-    speeds)."""
-    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
-
-    X = Bundle(SE2, Rn(2))
-    speeds = torch.stack([vel[0], vel[2]])
-
-    def f(t, x, u):
-        return torch.stack([x[4], torch.zeros_like(x[4]), x[5], u[0], u[1]])
-
-    def g(t, x, u):
-        e = X.rminus(x, torch.cat([SE2.exp(t * vel), speeds]))
-        # 1-element: a 0-d float32 tensor times a Python scalar gets a
-        # float64 tangent in torch's forward mode
-        return 0.5 * torch.stack([e @ e + u @ u])
-
-    return X, Rn(2), f, g
-
-
 def ocp_sweep_flat(dtype=torch.float32, device="cuda", start=None):
     """benchmarks/ocp_se2.py:112-139 through the port's API: the flat OCP
     of one tracked screw velocity ``vel`` (3,), as ``make_flat(vel)`` for
@@ -290,9 +291,7 @@ def ocp_sweep_problem(mesh, dtype=torch.float32, device="cuda", start=None):
     return lambda vel: ocp_to_nlp(make_flat(vel), mesh)
 
 
-# examples/pid_se2.py
-PID_STEPS = 2000
-PID_DT = 0.01
+# examples/pid_se2.py's PID_STEPS steps at PID_DT
 # card f32 splines against the CPU f64 port, (g, body velocity, body
 # acceleration): the phase run on a CPU in f32 lands within 2.4e-7, 1.1e-6
 # and 9.0e-6 of f64; about forty times that
@@ -307,10 +306,10 @@ KERNELS = {
     "admm_lane": ("smooth_feedback_tpu_torch/csrc/admm_lane.cu",
                   "smooth_feedback_tpu/qp/solver.py:645"),
 }
-# NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor
-# cores (both kernels run IEEE f32 FMAs)
+# NVIDIA H100 SXM data sheet: HBM3 rate and (utils/flops.py) the f32 rate
+# outside the tensor cores (the kernels run IEEE f32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+F32_FLOPS = H100_PEAK_F32
 
 
 def phase(name, msg):
@@ -639,7 +638,7 @@ def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_
 
 
 def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_iters=False,
-                       noisy=False):
+                       noisy=False, k=None, r=None):
     """One solve through the kernel against the plain version in f32 and in
     f64 on the same inputs: statuses, iteration counts, the unscaled primal
     where the counts agree, and every point the kernel calls Optimal
@@ -653,12 +652,13 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
     and counts must then match the f64 run's in as many members as the f32
     plain version's do, less max(1, B / 32) members.  ``min_optimal`` also
     requires that Optimal share from both versions alike; ``exact_iters``
-    every count equal.  Returns the primal error where counts agree and the
-    kernel's outputs."""
+    every count equal.  ``k`` and ``r`` are the kernel's and the f32 plain
+    version's outputs where already computed.  Returns the primal error
+    where counts agree and the kernel's outputs."""
     from smooth_feedback_tpu_torch.qp import admm_iterate_reference
 
-    k = wrapper(prm, *args)
-    r = admm_iterate_reference(prm, *args)
+    k = wrapper(prm, *args) if k is None else k
+    r = admm_iterate_reference(prm, *args) if r is None else r
     d = admm_iterate_reference(prm, *f64(args))
     torch.cuda.synchronize()
     share = lambda mask: float(mask.float().mean())
@@ -1176,16 +1176,17 @@ def reference_phase(dev, kept):
     return worst
 
 
-def vehicle_asif_path(mpc_backend, dev):
+def vehicle_asif_path(mpc_backend, dev, dtype=torch.float32):
     """benchmarks/asif_bench.py:39-123 in torch: the SE(2) x R^3 vehicle's
-    condensed MPC on one clock and the ASIF filter, float32 on ``dev``.
-    Returns ``(X, f, h, mpc_step, mpc_ws, asif_step, asif_ws)``."""
+    condensed MPC on one clock and the ASIF filter, in ``dtype`` (the
+    bench's float32) on ``dev``.  Returns ``(X, f, h, mpc_step, mpc_ws,
+    asif_step, asif_ws)``."""
     from smooth_feedback_tpu_torch.controllers import (
         ASIFilterParams, MPCParams, MPCWeights, make_asif_step, make_mpc_step,
     )
     from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
 
-    kw = dict(dtype=torch.float32, device=dev)
+    kw = dict(dtype=dtype, device=dev)
     X, U = Bundle(SE2, Rn(3)), Rn(2)
     vdes = torch.tensor([1.0, 0.0, 0.4], **kw)
     base = torch.tensor([2.5, 0.0, 0.0, 1.0], **kw)
@@ -1198,36 +1199,13 @@ def vehicle_asif_path(mpc_backend, dev):
         cr=lambda x, u: u, crl=[-0.5, -0.5], cru=[0.5, 0.5],
         reuse_factors=True, condense=True, static_reference=True, **kw,
     )
-    fl = asif_filter(dev)
+    fl = asif_filter(dev, dtype)
     asif, aws = make_asif_step(
         X, U, vehicle_asif_f, fl["h"], fl["bu"],
         params=ASIFilterParams(T=ASIF_T, asif=asif_to_qp_params(), qp=asif_qp_params("lane", True)),
         W_u=fl["W_u"], ulim=fl["ulim"], **kw,
     )
     return X, vehicle_asif_f, fl["h"], mpc, mws, asif, aws
-
-
-def vehicle_asif_f(x, u):
-    """The bench's vehicle: SE(2) pose with body velocity x[4:7], damped."""
-    return torch.stack(
-        [x[4], x[5], x[6], -0.2 * x[4] + u[0], torch.zeros_like(x[4]), -0.4 * x[6] + u[1]]
-    )
-
-
-def asif_filter(dev, dtype=torch.float32):
-    """The bench's barrier (clearance of the obstacle at (0, -2.3)), backup
-    law, input weights and input bounds, in ``dtype`` on ``dev``."""
-    from smooth_feedback_tpu_torch.utils import ManifoldBounds
-
-    kw = dict(dtype=dtype, device=dev)
-    obstacle = torch.tensor([0.0, -2.3], **kw)
-    return dict(
-        h=lambda t, x: torch.linalg.vector_norm(x[:2] - obstacle)[None] - 0.7,
-        bu=lambda t, x: torch.stack([0.2 * x[4], torch.full_like(x[4], -0.5)]),
-        W_u=torch.tensor([20.0, 1.0], **kw),
-        ulim=ManifoldBounds(A=torch.eye(2, **kw), c=torch.zeros(2, **kw),
-                            l=torch.tensor([-0.2, -0.5], **kw), u=torch.tensor([0.5, 0.5], **kw)),
-    )
 
 
 def asif_to_qp_params():
@@ -1253,13 +1231,13 @@ def asif_qp_params(backend, adaptive):
                           adaptive_rho=adaptive, backend=backend)
 
 
-def asif_initial(X, dev):
+def asif_initial(X, dev, dtype=torch.float32):
     """X.rplus(identity, 0.2 N(0, I6)) for ASIF_B vehicles, seed 0."""
     from torch.func import vmap
 
     dx = torch.as_tensor(0.2 * np.random.default_rng(SEED).standard_normal((ASIF_B, 6)),
-                         dtype=torch.float32, device=dev)
-    return vmap(lambda d: X.rplus(X.identity(dtype=torch.float32, device=dev), d))(dx)
+                         dtype=dtype, device=dev)
+    return vmap(lambda d: X.rplus(X.identity(dtype=dtype, device=dev), d))(dx)
 
 
 def batch_ws(ws, B_):
@@ -1779,84 +1757,15 @@ def ekf_linalg_timing(dev):
 # ------------------------------- EKF -> MPC -> ASIF (output_feedback_vehicle.py)
 
 
-def output_feedback_path(dev, dtype=torch.float32, backend="cuda", K_mpc=30, K_asif=50, T=2.5):
-    """examples/output_feedback_vehicle.py:33-98 in torch: the SE(2) x R^3
-    vehicle, its landmark + velocity measurement, the sparse MPC (K = 30, tf
-    = 5) and the ASIF (K = 50, T = 2.5, alpha 1, relax_cost 100), both QPs
-    polish off on ``backend``, and the filter's Q and R."""
-    from smooth_feedback_tpu_torch.controllers import (
-        ASIFilterParams, ASIFtoQPParams, MPCParams, MPCWeights, make_asif_step, make_mpc_step,
-    )
-    from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
-    from smooth_feedback_tpu_torch.qp import QPSolverParams
-
-    kw = dict(dtype=dtype, device=dev)
-    X, U = Bundle(SE2, Rn(3)), Rn(2)
-    landmarks = torch.tensor(OF_LANDMARKS, **kw)
-
-    def meas(x):
-        """Body-frame landmark positions and the measured body velocity."""
-        inv = SE2.inverse(x[:4])
-        Rt = torch.stack([torch.stack([inv[2], -inv[3]]), torch.stack([inv[3], inv[2]])])
-        return torch.cat([(landmarks @ Rt.T + inv[:2]).reshape(-1), x[4:]])
-
-    vdes = torch.tensor([1.0, 0.0, 0.4], **kw)
-    base = torch.tensor([2.5, 0.0, np.cos(np.pi / 2), np.sin(np.pi / 2)], **kw)
-    qp = QPSolverParams(polish=False, backend=backend)
-    mpc, mws = make_mpc_step(
-        X, U, vehicle_asif_f, lambda t: torch.cat([SE2.rplus(base, t * vdes), vdes]),
-        lambda t: torch.zeros(2, **kw), dxdes=lambda t: torch.cat([vdes, torch.zeros(3, **kw)]),
-        weights=MPCWeights(Q=torch.eye(6, **kw), Qtf=0.1 * torch.eye(6, **kw), R=torch.eye(2, **kw)),
-        params=MPCParams(K=K_mpc, tf=5.0, qp=qp),
-        cr=lambda x, u: u, crl=[-0.5, -0.5], cru=[0.5, 0.5], **kw,
-    )
-    fl = asif_filter(dev, dtype)
-    aprm = ASIFilterParams(T=T, asif=ASIFtoQPParams(K=K_asif, dt=0.05, alpha=1.0, relax_cost=100.0),
-                           qp=qp)
-    asif, aws = make_asif_step(X, U, vehicle_asif_f, fl["h"], fl["bu"], params=aprm, W_u=fl["W_u"],
-                               ulim=fl["ulim"], **kw)
-    Q = torch.diag(torch.tensor([1e-4, 1e-4, 1e-4, 1e-3, 1e-6, 1e-3], **kw))
-    return dict(X=X, U=U, f=vehicle_asif_f, meas=meas, h=fl["h"], fl=fl, mpc=mpc, mws=mws,
-                asif=asif, aws=aws, aprm=aprm, Q=Q, R=1e-3 * torch.eye(11, **kw), kw=kw)
-
-
-def output_feedback_start(p):
-    """The true state (identity), the estimate reset at (0.3, -0.3, 0.2) off
-    it with P = 0.5 I, and the measurement and process noise of ``steps``
-    steps (0.03 N(0, I11); 0.02 N(0, I6) on the velocity states), numpy
-    seed SEED."""
-    from smooth_feedback_tpu_torch.estimators import ekf_reset
-
-    X, kw = p["X"], p["kw"]
-    x0 = X.identity(**kw)
-    est0 = ekf_reset(X, X.rplus(x0, torch.tensor([0.3, -0.3, 0.2, 0.0, 0.0, 0.0], **kw)),
-                     0.5 * torch.eye(6, **kw))
-    return x0, est0
-
-
 def output_feedback_noise(steps, kw):
+    """The smoke's measurement and process noise for ``steps`` steps of the
+    example's loop (0.03 N(0, I11); 0.02 N(0, I6) on the velocity states),
+    numpy seed SEED."""
     rng = np.random.default_rng(SEED)
     nm = 0.03 * rng.standard_normal((steps, 11))
     nw = 0.02 * rng.standard_normal((steps, 6))
     nw[:, :3] = 0.0
     return torch.as_tensor(nm, **kw), torch.as_tensor(nw, **kw)
-
-
-def output_feedback_step(p, i, x, est, mws, aws, nm, nw):
-    """Step ``i`` of the example's loop: measure the TRUE state, EKF update,
-    MPC on the estimate, ASIF on its input, the plant with process noise,
-    EKF predict through the applied input.  Returns ``(x, est, est_upd, m,
-    a)``, ``est_upd`` the estimate both controllers saw."""
-    from smooth_feedback_tpu_torch.estimators import ekf_predict, ekf_update
-
-    X, f, kw = p["X"], p["f"], p["kw"]
-    t = torch.tensor(OF_DT * i, **kw)
-    est_upd = ekf_update(X, p["meas"], est, p["meas"](x) + nm, p["R"])
-    m = p["mpc"](mws, t, est_upd.g)
-    a = p["asif"](aws, est_upd.g, m.u)
-    x = X.rplus(x, OF_DT * f(x, a.u) + np.sqrt(OF_DT) * nw)
-    est = ekf_predict(X, lambda t_, g: f(g, a.u), est_upd, p["Q"], OF_DT)
-    return x, est, est_upd, m, a
 
 
 def output_feedback_phase(p, dev):
@@ -1974,13 +1883,75 @@ def output_feedback_plain_phase(dev, kept):
     return worst_m
 
 
+# The output-feedback MPC's solve never converges (4000 iterations every
+# step, in the JAX package too: ROADMAP Queue 3 item 7).  After that many
+# float32 iterations the kernel and the f32 plain version each lie from the
+# float64 run by f32 noise that the summation order decides, so the two are
+# not held to each other (a rounding change passed or failed that rule by
+# chance).  Each is held to the float64 run instead: per vector (x, z, y),
+# the largest distance from it over the members, relative to each member's
+# scale max(1, |v|_inf); the kernel's worst over the three vectors at most
+# OF_F64_FACTOR times the f32 plain version's worst plus OF_F64_FLOOR; and
+# the kernel's statuses equal to the f64 run's on every member where the
+# plain version's are.  The worst vector, not each one, is compared: which
+# vector's noise lands nearer float64 in one run is chance (at B = 1 a
+# kernel 4.8 x the plain version's in x was 0.59 x in y, its worst).  The
+# floor is two float32 ulps at scale 1, below every worst reading of the
+# plain version's (the output-feedback MPC's y 6.4e-5).  The factor is
+# what the committed kernel needs: its worst lies 1.0-1.6 x the plain
+# version's at the output-feedback MPC and the SE(3) fleet, and 2.5 x over
+# the family of the double-integrator NLP's first subproblem at (19, 45);
+# a build whose column products carry a 1e-5 relative bias lies 8.3 x at
+# the output-feedback MPC and fails (streaming_variants.py).
+OF_F64_FACTOR = 4.0
+OF_F64_FLOOR = 2 * 2.0 ** -23
+
+
+def f64_distances(outs, d):
+    """Per vector (x, z, y): the largest distance of ``outs`` from the
+    float64 run ``d`` over the members, relative to each member's scale."""
+    return [float(((o.double() - dv).abs().amax(dim=1) / dv.abs().amax(dim=1).clamp(min=1.0)).max())
+            for o, dv in zip(outs[:3], d[:3])]
+
+
+def f64_bound(plain):
+    """The float64 rule's bound on the kernel's worst distance, from the
+    plain version's per-vector distances ``plain``."""
+    return OF_F64_FACTOR * max(plain) + OF_F64_FLOOR
+
+
+def f64_distance_check(wrapper, args, prm, label, k=None, r=None):
+    """One solve through ``wrapper`` (its outputs ``k`` where given) and the
+    plain version in float32 (``r``) and float64 on the same inputs, judged
+    by the float64 rule above.  Returns the kernel's outputs."""
+    from smooth_feedback_tpu_torch.qp import admm_iterate_reference
+
+    k = wrapper(prm, *args) if k is None else k
+    r = admm_iterate_reference(prm, *args) if r is None else r
+    d = admm_iterate_reference(prm, *f64(args))
+    torch.cuda.synchronize()
+    statuses = bool(((k[3] == d[3]) | (r[3] != d[3])).all())
+    dk, dr = f64_distances(k, d), f64_distances(r, d)
+    good = statuses and max(dk) <= f64_bound(dr)
+    phase("kernel", f"{label}: statuses kernel {k[3].tolist()} plain {r[3].tolist()} f64 "
+                    f"{d[3].tolist()}, equal to f64's wherever the plain version's are: {statuses}; "
+                    f"largest distance from the f64 run relative to each member's scale: "
+                    + ", ".join(f"{v} kernel {a:.3e} plain {b:.3e}" for v, a, b in zip("xzy", dk, dr))
+                    + f"; the kernel's worst {max(dk):.3e} (bound {OF_F64_FACTOR:g} x the plain "
+                    f"version's worst + {OF_F64_FLOOR:.3g} = {f64_bound(dr):.3e})")
+    require(good, f"{label}: the kernel lies farther from the float64 run than the rule allows")
+    return k
+
+
 def output_feedback_kernel_phase(p, kept, dev):
     """admm_problem at the output-feedback shapes against its plain version:
     the MPC QPs and the ASIF QPs of the first OF_KERNEL_STEPS steps, batched
     (each member its own block, so the batch changes no member's result),
-    20 fixed iterations and a warm-started solve each; then each at B = 1,
-    the path's own launch, timed.  Returns the worst error and the rows
-    ``{shape: (ms, plain_ms, bound_ms, bound_by)}``."""
+    20 fixed iterations and a warm-started solve each (a solve that runs
+    to max_iter in both versions held to the float64 run:
+    :func:`f64_distance_check`); then each at B = 1, the path's own launch,
+    timed.  Returns the worst error and the rows ``{shape: (ms, plain_ms,
+    bound_ms, bound_by)}``."""
     from torch.func import vmap
     from smooth_feedback_tpu_torch.controllers import asif_to_qp
     from smooth_feedback_tpu_torch.qp import (
@@ -2022,12 +1993,13 @@ def output_feedback_kernel_phase(p, kept, dev):
         stuck = bool((k[3] == MAX_ITER).all() and (r[3] == MAX_ITER).all())
         if stuck:
             # every member runs to max_iter in both (the example's MPC does
-            # so in the JAX package too): the solve is a fixed-length run,
-            # compared by the fixed-iteration rule over its whole length
-            err = fixed_iteration_check(admm_iterate_cuda, warm, prm, label, iters=prm.max_iter)
+            # so in the JAX package too): each is held to the float64 run
+            # (not counted in the kernels line's max_abs_err: after 4000
+            # float32 iterations |kernel - plain| is f32 noise)
+            k = f64_distance_check(admm_iterate_cuda, warm, prm, label, k, r)
         else:
-            err, k = compare_with_plain(label, admm_iterate_cuda, prm, warm, qps)
-        worst = max(worst, err)
+            err, k = compare_with_plain(label, admm_iterate_cuda, prm, warm, qps, k=k, r=r)
+            worst = max(worst, err)
         one = tuple(a[-1:].contiguous() if a.dim() and a.shape[0] == len(first) else a for a in warm)
         k1 = admm_iterate_cuda(prm, *one)
         require(all(torch.equal(a, b[-1:]) for a, b in zip(k1, k)),
@@ -2049,15 +2021,11 @@ def output_feedback_kernel_phase(p, kept, dev):
 
 def ocp_sweep_params(backend):
     """benchmarks/ocp_se2.py:166-194 at B <= 64: unchunked, no probe, no
-    stall freeze; the subproblems on ``backend``."""
-    from smooth_feedback_tpu_torch.qp import QPSolverParams
+    stall freeze; the subproblems on ``backend`` (``card_qp_params``)."""
     from smooth_feedback_tpu_torch.solvers import SQPParams
 
-    return SQPParams(
-        max_iter=60, tol=OCP_TOL, compensated_kkt=True, qp_budget=36000,
-        qp=QPSolverParams(eps_abs=1e-6, eps_rel=1e-6, max_iter=1200, polish=True,
-                          kkt_refine_iters=1, backend=backend, compensated_check=True),
-    )
+    return SQPParams(max_iter=60, tol=OCP_TOL, compensated_kkt=True, qp_budget=36000,
+                     qp=card_qp_params(backend))
 
 
 def ocp_sweep_path(dev, dtype=torch.float32, B_=OCP_B, mesh=OCP_MESH):
@@ -2085,17 +2053,24 @@ def ocp_sweep_rescue(make, vels, sol, prm, z0):
 
 def ocp_kkt_f64(vels, sol, mesh=None, start=None):
     """Every member's KKT residual recomputed in float64 on the CPU at the
-    returned point (x, lam, z = zu - zl) of the NLP on ``mesh`` (a
-    ``Mesh``; the sweep's ``Mesh.uniform(*OCP_MESH)`` by default; ``start``
-    as :func:`ocp_sweep_flat`'s): max of |grad f + J' lam + z|_inf and the
-    largest bound violation."""
-    from torch.func import grad, jacrev, vmap
+    returned point of the NLP on ``mesh`` (a ``Mesh``; the sweep's
+    ``Mesh.uniform(*OCP_MESH)`` by default; ``start`` as
+    :func:`ocp_sweep_flat`'s): :func:`nlp_kkt_f64`."""
     from smooth_feedback_tpu_torch.ocp.collocation import Mesh
 
     make = ocp_sweep_problem(Mesh.uniform(*OCP_MESH) if mesh is None else mesh, torch.float64,
                              "cpu", start)
+    return nlp_kkt_f64(make, vels, sol)
+
+
+def nlp_kkt_f64(make, thetas, sol):
+    """Every member's KKT residual in float64 at the returned point (x,
+    lam, z = zu - zl) of its NLP ``make(theta)`` (a float64 CPU NLP): max
+    of |grad f + J' lam + z|_inf and the largest bound violation."""
+    from torch.func import grad, jacrev, vmap
+
     d = lambda a: torch.as_tensor(a).detach().to("cpu", torch.float64)
-    th, x, lam, z = d(vels), d(sol.x), d(sol.lam), d(sol.zu) - d(sol.zl)
+    th, x, lam, z = d(thetas), d(sol.x), d(sol.lam), d(sol.zu) - d(sol.zl)
     gval = vmap(lambda t, xx: make(t).g(xx))(th, x)
     gr = vmap(lambda t, xx: grad(make(t).f)(xx))(th, x)
     J = vmap(lambda t, xx: jacrev(make(t).g)(xx))(th, x)
@@ -2642,30 +2617,6 @@ def ocp_refine_kernel_phase(dev, passes, vels):
     return max(worst, err), (n, m)
 
 
-def ocp_example(dtype=torch.float32, device="cuda"):
-    """examples/ocp_se2_nlp.py's OCP through the port's API: X = SE(2) x
-    R^2, U = R^2, vel (1, 0, 0.5), cost tf + the integral of |x (-) xdes|^2/2
-    + |u|^2/2, |u| <= 1, tf = 5 and x0 = (identity, (1, 0)) fixed by the end
-    constraints.  Returns ``(ocp, xl, ul)``: the OCP and its nominal, the
-    identity and u = 0.01."""
-    from smooth_feedback_tpu_torch.ocp import OCP
-
-    kw = dict(dtype=dtype, device=device)
-    X, U, f, g = se2_tracking(torch.tensor([1.0, 0.0, 0.5], **kw))
-    bound_u = torch.ones(2, **kw)
-    ends = torch.tensor([5.0, 0.0, 0.0, 0.0, 1.0, 0.0], **kw)
-    ocp = OCP(
-        X=X, U=U,
-        theta=lambda tf, x0, xf, q: tf + q[0],
-        f=f, g=g,
-        cr=lambda t, x, u: u, crl=-bound_u, cru=bound_u,
-        ce=lambda tf, x0, xf, q: torch.cat([tf[None], X.log(x0)]),
-        cel=ends, ceu=ends,
-    )
-    x_nom, u_nom = X.identity(**kw), torch.full((2,), 0.01, **kw)
-    return ocp, (lambda t: x_nom), (lambda t: u_nom)
-
-
 def ocp_solve_run(dev, backend="cuda", dtype=torch.float32):
     """solve_ocp (flatten, refine, unflatten) on :func:`ocp_example` with
     the refinement protocol.  Returns ``(sol, mesh, info, x(0))``."""
@@ -2712,35 +2663,6 @@ def ocp_solve_phase(dev):
     return counts, shapes
 
 
-def ocp_qp_problem(dtype=torch.float32, device="cuda", n_ival=OCP_QP_IVALS):
-    """examples/ocp_se2_qp.py's problem through the port's API: the SE(2) x
-    R^2 OCP with cost the integral alone and x0 = (identity, (1, 0)),
-    linearized about the desired screw on Mesh.uniform(n_ival, 5, 5, 5),
-    tf = 5.  Returns ``(ocp, mesh, tf, xl, ul, dxl)``."""
-    from smooth_feedback_tpu_torch.groups import SE2
-    from smooth_feedback_tpu_torch.ocp import OCP
-    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
-
-    kw = dict(dtype=dtype, device=device)
-    vel = torch.tensor([1.0, 0.0, 0.5], **kw)
-    X, U, f, g = se2_tracking(vel)
-    bound_u = torch.ones(2, **kw)
-    ends = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0], **kw)
-    speeds = torch.stack([vel[0], vel[2]])
-    xdes = lambda t: torch.cat([SE2.exp(t * vel), speeds])
-    ocp = OCP(
-        X=X, U=U,
-        theta=lambda tf, x0, xf, q: q[0],
-        f=f, g=g,
-        cr=lambda t, x, u: u, crl=-bound_u, cru=bound_u,
-        ce=lambda tf, x0, xf, q: X.log(x0),
-        cel=ends, ceu=ends,
-    )
-    dxl = torch.cat([vel, torch.zeros(2, **kw)])
-    return (ocp, Mesh.uniform(n_ival, 5, Kmin=5, Kmax=5), 5.0, xdes,
-            lambda t: torch.zeros(2, **kw), lambda t: dxl)
-
-
 def ocp_qp_params(backend, polish=True):
     """The example's QP parameters (max_iter 20000, polish) at eps OCP_QP_EPS."""
     from smooth_feedback_tpu_torch.qp import QPSolverParams
@@ -2774,8 +2696,11 @@ def ocp_qp_phase(dev):
     iterations with every tolerance 0 (relative_fixed_check) and the solve
     itself (compare_with_plain: status and iteration count against the
     plain version's and the f64 run's, the Optimal point re-checked in
-    f64).  Returns the launches, the QP's shape and the worst error."""
-    from smooth_feedback_tpu_torch.qp import QuadraticProgram, admm_iterate_cuda, per_problem_kernel_args
+    f64), and the kernel's time on it beside the plain version's and the
+    bound.  Returns the launches, the QP's shape and the worst error."""
+    from smooth_feedback_tpu_torch.qp import (
+        QuadraticProgram, admm_iterate_cuda, admm_iterate_reference, per_problem_kernel_args,
+    )
 
     reset_counts()
     t0 = time.perf_counter()
@@ -2807,6 +2732,11 @@ def ocp_qp_phase(dev):
     err, k = compare_with_plain(f"{label}, the path's solve before polish", admm_iterate_cuda, qprm,
                                 args, qp1)
     require(int(k[4][0]) == int(sol.iters), "the checked solve is not the path's launch")
+    row = (time_ms(lambda: admm_iterate_cuda(qprm, *args), 20),
+           time_ms(lambda: admm_iterate_reference(qprm, *args), 3), *bound(args, k, qprm))
+    phase("kernel", f"{label}, the path's solve: kernel {row[0]:.4f} ms, plain {row[1]:.4f} ms "
+                    f"(means of back-to-back calls), {int(k[4][0])} iterations; bound "
+                    f"{row[2]:.6f} ms ({row[3]})")
     return counts, (n, m), max(worst, err)
 
 
@@ -2933,27 +2863,17 @@ def lane_phase(dev):
 
 
 def pid_spline_phase(dev):
-    """examples/pid_se2.py on the card (float32, 2000 steps at dt = 0.01):
-    the final tracking error below 0.05; and fit_spline / spline_eval on
-    SE(2) and SO(3) knots in float32 on the card against the CPU float64
+    """examples_torch/pid_se2.py on the card (float32, 2000 steps at dt =
+    0.01): the final tracking error below 0.05; and fit_spline / spline_eval
+    on SE(2) and SO(3) knots in float32 on the card against the CPU float64
     port."""
-    from smooth_feedback_tpu_torch.controllers import PIDParams, pid_gains, pid_init, pid_step
+    from examples_torch import pid_se2
     from smooth_feedback_tpu_torch.groups import SE2, SO3
     from smooth_feedback_tpu_torch.utils import fit_spline, spline_eval
 
     kw = dict(dtype=torch.float32, device=dev)
-    twist = torch.tensor([0.4, 0.0, 0.3], **kw)
-    gains, prm = pid_gains(SE2, kp=2.0, kd=2.5, ki=0.2, **kw), PIDParams(windup_limit=1.0)
-    x, v, st = SE2.exp(torch.tensor([1.0, -0.5, 0.8], **kw)), torch.zeros(3, **kw), pid_init(SE2, **kw)
-    zeros, errs = torch.zeros(3, **kw), []
     t0 = time.perf_counter()
-    for i in range(PID_STEPS):
-        t = torch.tensor(i * PID_DT, **kw)
-        u, st = pid_step(SE2, prm, gains, st, t, x, v, SE2.exp(t * twist), twist, zeros)
-        v = v + PID_DT * u
-        x = SE2.rplus(x, PID_DT * v)
-        errs.append(torch.linalg.vector_norm(SE2.rminus(x, SE2.exp((t + PID_DT) * twist))))
-    errs = torch.stack(errs).tolist()
+    errs = pid_se2.run(PID_STEPS, **kw)["errs"].tolist()
     phase("pid-spline", f"PID on SE(2), {PID_STEPS} steps at dt={PID_DT}: error {errs[0]:.4f} -> "
                         f"{errs[-1]:.6f} (bound 0.05), {time.perf_counter() - t0:.3f} s")
     require(errs[-1] < 0.05, f"PID final error {errs[-1]}")
@@ -2974,6 +2894,601 @@ def pid_spline_phase(dev):
                                 f"{len(times)} times: max |dg| {err[0]:.3e}, |dv| {err[1]:.3e}, "
                                 f"|da| {err[2]:.3e} (bounds {SPLINE_TOL})")
             require(all(e <= b for e, b in zip(err, SPLINE_TOL)), f"{name} spline differs")
+
+
+# ----------------------------------------------- the examples (examples_torch/)
+
+# Examples 1-9 of examples_torch/ (those no earlier phase runs), each at its
+# own width: horizon, fleet, mesh, state and input dimensions as the JAX
+# example's.  A closed loop runs EX_STEPS[name][0] of its default
+# EX_STEPS[name][1] steps where the default would not fit the smoke's time
+# (seconds a step on the H100 at 700 W: the SE(3) MPC 0.40-0.48, the
+# vehicle MPC + ASIF 1.66-1.90, the double-integrator ASIF 0.15-0.24, the
+# condensed MPC 0.016-0.017, the EKF fleet 0.07-0.09; the smoke took 696 s
+# on one host and 908 s on another with deeper cuts, and 870 s on the
+# second with SE(3) MPC 40 and vehicle 8 steps).
+EX_STEPS = {
+    "mpc_se3_rigidbody": (24, 300),
+    "mpc_doubleintegrator": (400, 1200),
+    "asif_doubleintegrator": (40, 500),
+    "mpc_asif_vehicle": (6, 800),
+    "ekf_se2_localization": (200, 200),
+    "ekf_fleet_se2": (100, 200),
+}
+# Each closed loop's first EX_CPU_STEPS steps (each OCP example whole) run
+# again on the CPU in float64 (the torch loop) and in float32 (the kernel
+# routes' plain versions): the card's float32 states may lie from the
+# float64 run's at most EX_F32_FACTOR times as far as the CPU's float32
+# states do, plus EX_X_ATOL.  The floor is the problem's own: the EKF
+# examples' first update inverts H P H' + R with P = I and R = 0.001 I,
+# condition ~3e4, so float32 lands ~5e-4 from float64 on any device.
+EX_CPU_STEPS = 3
+EX_F32_FACTOR = 10.0
+EX_X_ATOL = 1e-6
+# the kernels are held at the QPs of a loop's first EX_KERNEL_STEPS states,
+# a single QP as a family of EX_FAMILY members (as_family)
+EX_KERNEL_STEPS = 8
+EX_FAMILY = 16
+# the SE(3) fleet's refinement: the example's B, target and pass limit
+EX_SE3_B = 8
+
+
+def example_line(name, secs, steps, merit, counts):
+    phase("examples", f"{name}: {secs:.3f} s, {steps}, {merit}, launches {counts}")
+
+
+def held_to_f64(name, card, run_cpu):
+    """The card's float32 states ``card`` against the float64 CPU run's:
+    ``run_cpu(dtype)`` runs the example on the CPU and returns the same
+    states; the bound is EX_F32_FACTOR x the CPU float32 run's distance
+    from float64 + EX_X_ATOL."""
+    ref = run_cpu(torch.float64).double()
+    floor = float((run_cpu(torch.float32).double() - ref).abs().max())
+    dx = float((card.double().cpu() - ref).abs().max())
+    bound = EX_F32_FACTOR * floor + EX_X_ATOL
+    phase("examples", f"{name}: float32 on the card against float64 on the CPU, max |dx| "
+                      f"{dx:.3e} (float32 on the CPU {floor:.3e}; bound {EX_F32_FACTOR:g} x that + "
+                      f"{EX_X_ATOL:g})")
+    require(dx <= bound, f"{name}: the card's trajectory differs from float64's by {dx:.3e}")
+
+
+def cpu_backend(dtype, route):
+    """The CPU run's backend: the example's kernel ``route`` (its plain
+    version on CPU tensors) in float32, the torch loop in float64."""
+    return route if dtype == torch.float32 else "torch"
+
+
+def first_member(args, B_):
+    return tuple(a[:1].contiguous() if a is not None and a.dim() and a.shape[0] == B_ else a
+                 for a in args)
+
+
+def example_kernel(label, wrapper, args, qps, prm, worst, shape, family=None):
+    """A kernel ``wrapper`` (admm_problem's or admm_shared's) at an
+    example's QP batch against its plain version, after its fixed-iteration
+    check (whose worst error is ``worst``): the solve (compare_with_plain,
+    noisy: statuses and counts against the float64 run; where every member
+    runs to max_iter in both versions, f64_distance_check, on ``family``'s
+    arguments where a single QP was widened by :func:`as_family`), member 0
+    alone equal to its batched result, and member 0's launch timed.
+    Returns the worst error, the row and ``shape``."""
+    from smooth_feedback_tpu_torch.qp import QPSolutionStatus, admm_iterate_reference
+
+    k = wrapper(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    MAX_ITER = int(QPSolutionStatus.MaxIterations)
+    stuck = bool((k[3] == MAX_ITER).all() and (r[3] == MAX_ITER).all())
+    if stuck:
+        # every member runs to max_iter in both (the SQP's first subproblem,
+        # lambda = 0): held to the float64 run as the output-feedback MPC is
+        what = f"{label}, solve (max_iter in both)"
+        if family is None:
+            k = f64_distance_check(wrapper, args, prm, what, k, r)
+        else:
+            f64_distance_check(wrapper, family, prm, f"{what}, its family")
+    else:
+        # converged solves: the path's own QPs (a family's near-equal
+        # members stop at one check or another together, by rounding)
+        err, k = compare_with_plain(f"{label}, solve", wrapper, prm, args, qps, noisy=True,
+                                    k=k, r=r)
+        worst = max(worst, err)
+    one = first_member(args, shape[0])
+    k1 = wrapper(prm, *one)
+    require(all(torch.equal(a, b[:1]) for a, b in zip(k1, k)),
+            f"{label}: member 0 alone differs from its batched result")
+    # a plain solve to max_iter takes about a second: one timed call
+    row = (time_ms(lambda: wrapper(prm, *one), 10),
+           time_ms(lambda: admm_iterate_reference(prm, *one), 1 if stuck else 2),
+           *bound(one, k1, prm))
+    phase("kernel", f"{label}: member 0's solve at B=1: kernel {row[0]:.4f} ms, plain {row[1]:.4f} "
+                    f"ms (means of back-to-back calls), {int(k1[4][0])} iterations; bound "
+                    f"{row[2]:.6f} ms ({row[3]})")
+    return worst, row, shape
+
+
+def as_family(qps, ws):
+    """A single QP (batch of one) and its warm start ``ws`` as a family of
+    EX_FAMILY members: itself first, then copies whose q is scaled
+    elementwise by 1 + 1e-3 N(0, 1) (numpy seed SEED), each from the same
+    warm start.  One member's float32 distance from float64 is a single
+    draw of rounding noise (one solve at B = 1 put the kernel's at 4.8 x
+    the plain version's in x and 0.59 x in y): the family gives the checks
+    of iterates a distribution over members at the path's shape."""
+    from smooth_feedback_tpu_torch.qp import QPSolution, QuadraticProgram
+
+    rng = np.random.default_rng(SEED)
+    rep = lambda a: a.expand(EX_FAMILY, *a.shape[1:]).contiguous()
+    scale = torch.as_tensor(1.0 + 1e-3 * rng.standard_normal((EX_FAMILY - 1, qps.q.shape[-1])),
+                            dtype=qps.q.dtype, device=qps.q.device)
+    fam = QuadraticProgram(rep(qps.P), torch.cat([qps.q, qps.q * scale]), rep(qps.A), rep(qps.l),
+                           rep(qps.u))
+    return fam, None if ws is None else QPSolution(*(rep(a) for a in ws))
+
+
+def example_problem_kernel(label, qps, prm, fixed=FIXED_ITERS, ws=None):
+    """admm_problem at an example's QP batch (warm start ``ws``): the
+    launch layout against problem_route, ``fixed`` iterations with every
+    tolerance 0 judged against float64 relative to each member's scale
+    (relative_fixed_check; a single QP widened by :func:`as_family`), then
+    :func:`example_kernel` on the path's own QPs."""
+    import ctypes
+
+    from smooth_feedback_tpu_torch import _build
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda, per_problem_kernel_args
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+
+    n, m, B_ = qps.A.shape[-1], qps.A.shape[-2], qps.A.shape[0]
+    args = per_problem_kernel_args(qps, None, ws, prm)
+    family = None
+    if B_ == 1:
+        fq, fws = as_family(qps, ws)
+        family = per_problem_kernel_args(fq, None, fws, prm)
+    label = f"{label} ({n}, {m}) B={B_}"
+    smem = ctypes.c_int(0)
+    resident = _build.load().admm_problem_route(n, m, ck.PROBLEM_WARPS, ctypes.byref(smem))
+    route = ("resident" if resident else "streaming", smem.value)
+    phase("layout", f"admm_problem at {label}: {route[0]} route, {route[1]} bytes of shared "
+                    f"memory a block (problem_route: {ck.problem_route(n, m)})")
+    require(route == ck.problem_route(n, m), "problem_route does not mirror the library")
+    worst = relative_fixed_check(admm_iterate_cuda, args if family is None else family, prm, fixed,
+                                 label if family is None else f"{label}, its family of {EX_FAMILY}")
+    return example_kernel(label, admm_iterate_cuda, args, qps, prm, worst, (B_, n, m), family)
+
+
+def example_lane_kernel(label, qps, prm, dev):
+    """admm_lane at an example's ASIF QP batch against its plain version:
+    FIXED_ITERS iterations from a seeded random start (an input already
+    safe makes the cold start exact) and the cold solve (lane_compare),
+    member 0's launch timed.  Returns the worst error, the row and the
+    shape."""
+    from smooth_feedback_tpu_torch.qp import (
+        admm_iterate_cuda_lane, admm_iterate_lane_reference, lane_kernel_args,
+    )
+
+    n, m, B_ = qps.A.shape[-1], qps.A.shape[-2], qps.A.shape[0]
+    label = f"{label} ({n}, {m}) B={B_}"
+    cold = lane_kernel_args(qps, None, None, prm)
+    rng = np.random.default_rng(SEED)
+    noisy = list(cold)
+    for i in (16, 17, 18):  # x0, z0, y0
+        noisy[i] = torch.as_tensor(0.1 * rng.standard_normal(tuple(cold[i].shape)),
+                                   dtype=torch.float32, device=dev)
+    worst = fixed_iteration_check(admm_iterate_cuda_lane, tuple(noisy),
+                                  dataclasses.replace(prm, adaptive_rho=False),
+                                  f"{label}, a seeded random start (std 0.1)",
+                                  plain=admm_iterate_lane_reference)
+    err, k = lane_compare(f"{label}, cold", cold, prm)
+    one = first_member(cold, B_)
+    k1 = admm_iterate_cuda_lane(prm, *one)
+    row = (time_ms(lambda: admm_iterate_cuda_lane(prm, *one), 20),
+           time_ms(lambda: admm_iterate_lane_reference(prm, *one), 3), *lane_bound(one, k1, prm))
+    phase("kernel", f"{label}: member 0's solve at B=1: kernel {row[0]:.4f} ms, plain {row[1]:.4f} "
+                    f"ms, {int(k1[4][0])} iterations; bound {row[2]:.6f} ms ({row[3]})")
+    return max(worst, err), row, (B_, n, m)
+
+
+def example_mpc_se3(dev):
+    """examples_torch/mpc_se3_rigidbody.py: the SE(3) x R^6 hover MPC (K =
+    8, QP per step through admm_problem), the first card run of MPC on
+    SE(3).  The example's assertions (every QP Optimal; the hover error
+    falling), its states held to float64, the kernel at the loop's QPs."""
+    from torch.func import vmap
+    from examples_torch import mpc_se3_rigidbody as ex
+    from smooth_feedback_tpu_torch.qp import QPSolverParams
+
+    name = "mpc_se3_rigidbody"
+    steps, default = EX_STEPS[name]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ex.run(steps, device=dev)
+    torch.cuda.synchronize()
+    secs, counts = time.perf_counter() - t0, read_counts()
+    opt = float((out["statuses"] == 0).float().mean())
+    errs = out["errs"].tolist()
+    example_line(name, secs, f"{steps} of {default} steps", f"Optimal {opt * 100:.3f}%, hover error "
+                 f"{errs[0]:.4f} -> {errs[-1]:.4f}", counts)
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": steps}, f"{name} launches")
+    require(opt == 1.0, f"{name}: a QP was not Optimal")
+    require(errs[-1] < errs[0], f"{name}: the hover error did not fall")
+    held_to_f64(name, out["xs"][:EX_CPU_STEPS], lambda dt: ex.run(
+        EX_CPU_STEPS, device="cpu", dtype=dt, backend=cpu_backend(dt, "cuda"))["xs"])
+    step, _, _, x0 = ex.build(device=dev)
+    states = torch.cat([x0[None], out["xs"][:EX_KERNEL_STEPS - 1]])
+    ts = ex.DT * torch.arange(EX_KERNEL_STEPS, dtype=torch.float32, device=dev)
+    qps = vmap(step.transcribe)(ts, states)
+    return counts, example_problem_kernel(name, qps, QPSolverParams(polish=False, backend="cuda"))
+
+
+def example_mpc_di(dev):
+    """examples_torch/mpc_doubleintegrator.py: the condensed K = 20 MPC at
+    B = 1 (one admm_shared launch a step): the example's assertion (> 95 %
+    Optimal), its states held to float64, the kernel at the condensed QPs
+    of the loop's first states."""
+    from examples_torch import mpc_doubleintegrator as ex
+    from smooth_feedback_tpu_torch.qp import (
+        QPSolverParams, admm_iterate_cuda_shared, shared_kernel_args,
+    )
+
+    name = "mpc_doubleintegrator"
+    steps, default = EX_STEPS[name]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ex.run(steps, device=dev)
+    torch.cuda.synchronize()
+    secs, counts = time.perf_counter() - t0, read_counts()
+    opt = float((out["statuses"] == 0).float().mean())
+    ts = (np.arange(steps) + 1) * ex.DT
+    err = np.abs(out["xs"][:, 0].double().cpu().numpy() + 0.5 * np.sin(0.3 * ts))
+    example_line(name, secs, f"{steps} of {default} steps", f"Optimal {opt * 100:.3f}%, tracking "
+                 f"error after the transient {err[min(200, steps // 2):].max():.4f}", counts)
+    require(counts == {"admm_shared": steps, "admm_lane": 0, "admm_problem": 0}, f"{name} launches")
+    require(opt > 0.95, f"{name}: Optimal share {opt}")
+    held_to_f64(name, out["xs"][:EX_CPU_STEPS], lambda dt: ex.run(
+        EX_CPU_STEPS, device="cpu", dtype=dt, backend=cpu_backend(dt, "cuda"))["xs"])
+    step, _ = ex.build(device=dev)
+    states = torch.cat([torch.tensor([[1.0, 0.0]], device=dev), out["xs"][:EX_KERNEL_STEPS - 1]])
+    prm = QPSolverParams(polish=False, max_iter=300, backend="cuda")
+    qps = step.condensed_qp(0.0, states)
+    args = shared_kernel_args(qps, step.factors)
+    n, m, B_ = step.factors.Minv.shape[0], step.factors.As.shape[0], len(states)
+    label = f"{name} condensed ({n}, {m}) B={B_}"
+    worst = fixed_iteration_check(admm_iterate_cuda_shared, args, prm, label)
+    return counts, example_kernel(label, admm_iterate_cuda_shared, args, qps, prm, worst,
+                                  (B_, n, m))
+
+
+def example_asif_di(dev):
+    """examples_torch/asif_doubleintegrator.py: the ASIF (K = 30) on the
+    lane route (one admm_lane launch a step): the example's assertion
+    (position >= -0.05), its states held to float64, admm_lane at the
+    filter QPs of the loop's first states."""
+    from examples_torch import asif_doubleintegrator as ex
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp
+    from smooth_feedback_tpu_torch.qp import QuadraticProgram
+
+    name = "asif_doubleintegrator"
+    steps, default = EX_STEPS[name]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ex.run(steps, device=dev)
+    torch.cuda.synchronize()
+    secs, counts = time.perf_counter() - t0, read_counts()
+    opt = float((out["statuses"] == 0).float().mean())
+    pmin = float(out["xs"][:, 0].min())
+    example_line(name, secs, f"{steps} of {default} steps", f"Optimal {opt * 100:.3f}%, min "
+                 f"position {pmin:+.4f}, final {out['xs'][-1].tolist()}", counts)
+    require(counts == {"admm_shared": 0, "admm_lane": steps, "admm_problem": 0}, f"{name} launches")
+    require(pmin > -0.05, f"{name}: min position {pmin}")
+    held_to_f64(name, out["xs"][:EX_CPU_STEPS], lambda dt: ex.run(
+        EX_CPU_STEPS, device="cpu", dtype=dt, backend=cpu_backend(dt, "lane"))["xs"])
+    _, _, prm, pc = ex.build(device=dev)
+    states = torch.cat([torch.tensor([[2.0, 0.0]], device=dev), out["xs"][:EX_KERNEL_STEPS - 1]])
+    u_des = torch.tensor([-1.0], device=dev)
+    qps = QuadraticProgram(*(torch.stack(a) for a in zip(*(
+        asif_to_qp(ex.X, ex.U, prm.asif, prm.T, x, u_des, pc["W_u"], pc["ulim"], ex.f, pc["h"],
+                   pc["bu"]) for x in states))))
+    return counts, example_lane_kernel(name, qps, prm.qp, dev)
+
+
+def example_vehicle(dev):
+    """examples_torch/mpc_asif_vehicle.py: the sparse MPC (K = 30, one
+    admm_problem launch a step, (262, 262) as the output-feedback loop's)
+    and the ASIF (K = 50, alpha 1, relax_cost 100, static rho: one
+    admm_lane launch a step): the barrier positive, the states held to
+    float64, admm_lane at the filter QPs of the loop's first states."""
+    from examples_torch import mpc_asif_vehicle as ex
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp
+    from smooth_feedback_tpu_torch.qp import QuadraticProgram
+
+    name = "mpc_asif_vehicle"
+    steps, default = EX_STEPS[name]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ex.run(steps, device=dev)
+    torch.cuda.synchronize()
+    secs, counts = time.perf_counter() - t0, read_counts()
+    st = lambda k: {s: int((out[k] == s).sum()) for s in set(out[k].tolist())}
+    hmin = float(out["hs"].min())
+    example_line(name, secs, f"{steps} of {default} steps", f"MPC statuses {st('mpc_statuses')}, "
+                 f"ASIF statuses {st('asif_statuses')}, min barrier {hmin:+.6f}", counts)
+    require(counts == {"admm_shared": 0, "admm_lane": steps, "admm_problem": steps},
+            f"{name} launches")
+    require(hmin > 0.0, f"{name}: min barrier {hmin}")
+    held_to_f64(name, out["xs"][:EX_CPU_STEPS], lambda dt: ex.run(
+        EX_CPU_STEPS, device="cpu", dtype=dt, backend=cpu_backend(dt, "cuda"),
+        asif_backend=cpu_backend(dt, "lane"))["xs"])
+    c = ex.controllers(dict(dtype=torch.float32, device=dev), "cuda", "lane")
+    x0 = ex.X.identity(dtype=torch.float32, device=dev)
+    states = torch.cat([x0[None], out["xs"][:EX_KERNEL_STEPS - 1]])
+    fl, aprm = c["fl"], c["aprm"]
+    qps = QuadraticProgram(*(torch.stack(a) for a in zip(*(
+        asif_to_qp(ex.X, ex.U, aprm.asif, aprm.T, x, u, fl["W_u"], fl["ulim"], ex.f, fl["h"],
+                   fl["bu"]) for x, u in zip(states, out["u_mpc"][:EX_KERNEL_STEPS])))))
+    return counts, example_lane_kernel(name, qps, aprm.qp, dev)
+
+
+def example_ocp_di_qp(dev):
+    """examples_torch/ocp_doubleintegrator_qp.py at its n_ival 10 (K = 40):
+    one admm_problem launch, Optimal, x(t) at 11 times held to the float64
+    torch route at the example's eps 1e-6, the kernel at the QP."""
+    from examples_torch import ocp_doubleintegrator_qp as ex
+    from smooth_feedback_tpu_torch.qp import QPSolverParams, QuadraticProgram
+
+    name = "ocp_doubleintegrator_qp"
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ex.run(device=dev)
+    torch.cuda.synchronize()
+    secs, counts = time.perf_counter() - t0, read_counts()
+    sol = out["sol"]
+    example_line(name, secs, "n_ival 10 (the default)", f"status {int(sol.status)}, iterations "
+                 f"{int(sol.iters)}, x(tf) {out['xs'][-1].tolist()}", counts)
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 1}, f"{name} launches")
+    require(int(sol.status) == 0, f"{name}: not Optimal")
+    held_to_f64(name, out["xs"], lambda dt: ex.run(device="cpu", dtype=dt,
+                                                   backend=cpu_backend(dt, "cuda"))["xs"])
+    qp1 = QuadraticProgram(*(a[None] for a in out["qp"]))
+    prm = QPSolverParams(eps_abs=1e-3, eps_rel=1e-3, max_iter=20000, polish=False, backend="cuda")
+    return counts, example_problem_kernel(name, qp1, prm)
+
+
+def example_ocp_di_nlp(dev):
+    """examples_torch/ocp_doubleintegrator_nlp.py (its derivative self-check,
+    then refinement to the float32 target from Mesh()): Optimal, the final
+    error within the target, the fixed ends held, one admm_problem launch
+    per SQP iteration, x(t) at 11 times held to float64 (the CPU's torch
+    route to the same target); then admm_problem at each pass's first
+    subproblem, taken from the run through the SQP's stage hook, for one
+    iteration from the path's own start (every subproblem of this NLP runs
+    the ADMM to max_iter, polish finishing it, and from the starts the
+    refinement transfers 20 float32 iterations already put the kernel's
+    distance from float64 at 2.0 x the plain version's in y and 0.57 x in
+    x) and the whole solve by the float64 rule."""
+    from examples_torch import _common, ocp_doubleintegrator_nlp as ex
+    from smooth_feedback_tpu_torch.solvers import sqp
+
+    name = "ocp_doubleintegrator_nlp"
+    # each pass is one solve_nlp_sqp, which runs the lockstep loop on a
+    # fleet of one: its first subproblem batch is kept as the loop hands it
+    # to the QP solver (no launch added, none repeated)
+    firsts, loop = [], sqp._solve_nlp_sqp_batch_impl
+
+    def kept_first(make_nlp, thetas, x0, params, lam0, trace=None):
+        seen = {}
+        keep = lambda stage, info: seen.setdefault("qp", info) if stage == "qp" else None
+        sol = loop(make_nlp, thetas, x0, params, lam0, keep)
+        firsts.append((seen["qp"], params.qp))
+        return sol
+
+    reset_counts()
+    sqp._solve_nlp_sqp_batch_impl = kept_first
+    try:
+        t0 = time.perf_counter()
+        out = ex.run(device=dev)
+        torch.cuda.synchronize()
+        secs, counts = time.perf_counter() - t0, read_counts()
+    finally:
+        sqp._solve_nlp_sqp_batch_impl = loop
+    info, mesh = out["info"], out["mesh"]
+    example_line(name, secs, f"{len(info.meshes)} passes of at most 10 (float32 target "
+                 f"{_common.F32_TARGET_ERR:g}, SQP tol {_common.F32_SQP_TOL:g}; the example's "
+                 f"1e-6, 1e-8)", f"status {info.status.name}, meshes "
+                 f"{[(q.N_ivals, q.N_colloc) for q in info.meshes]}, SQP iterations "
+                 f"{info.nlp_iters}, errors {[float(f'{e:.4g}') for e in info.errors]}", counts)
+    require(info.status == 0, f"{name}: not Optimal")
+    require(info.errors[-1] <= _common.F32_TARGET_ERR, f"{name}: final error {info.errors[-1]}")
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": sum(info.nlp_iters)},
+            f"{name} launches")
+    require(len(firsts) == len(info.meshes), f"{name}: {len(firsts)} SQP solves in "
+                                             f"{len(info.meshes)} passes")
+    ends = torch.stack([out["xs"][0], out["xs"][-1]]).double().cpu()
+    want = torch.tensor([[1.0, 1.0], [0.1, 0.0]], dtype=torch.float64)
+    require(float((ends - want).abs().max()) <= 1e-4, f"{name}: the fixed ends moved: {ends}")
+    held_to_f64(name, out["xs"], lambda dt: ex.run(
+        _common.F32_TARGET_ERR, device="cpu", dtype=dt, backend=cpu_backend(dt, "cuda"))["xs"])
+    rows, worst = [], 0.0
+    for i, ((cap, qprm), q) in enumerate(zip(firsts, info.meshes)):
+        err, row, shape = example_problem_kernel(
+            f"{name} pass {i} mesh ({q.N_ivals}, {q.N_colloc}), SQP iteration 1", cap["qp"], qprm,
+            fixed=OCP_FIRST_ITERS, ws=cap["ws"])
+        worst = max(worst, err)
+        rows.append((row, shape))
+    return counts, (worst, rows)
+
+
+def se3_kkt_f64(ex, mesh, twists, sol):
+    """Every member's KKT residual recomputed in float64 on the CPU at the
+    returned point of the SE(3) fleet's NLP on ``mesh``."""
+    from smooth_feedback_tpu_torch.ocp import ocp_to_nlp
+
+    make_flat = ex.flat_factory(torch.float64, "cpu")
+    return nlp_kkt_f64(lambda th: ocp_to_nlp(make_flat(th), mesh, torch.float64, "cpu"), twists, sol)
+
+
+def se3_errors_f64(ex, mesh, twists, sol):
+    """The fleet-max per-interval dynamics errors of ``sol`` on ``mesh``,
+    evaluated as the driver does, in float64 on the CPU."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch.nlp import NLPSolution
+    from smooth_feedback_tpu_torch.ocp import nlpsol_to_ocpsol
+    from smooth_feedback_tpu_torch.ocp.collocation import mesh_dyn_error
+
+    make_flat = ex.flat_factory(torch.float64, "cpu")
+    d = lambda a: a.detach().to("cpu", torch.float64 if a.is_floating_point() else a.dtype)
+    hi = mesh.increase_degrees()
+
+    def one(th, s):
+        flat = make_flat(th)
+        o = nlpsol_to_ocpsol(flat, mesh, s)
+        return mesh_dyn_error(hi, flat.f, 0.0, o.tf, o.x, o.u)
+
+    return vmap(one)(d(twists), NLPSolution(*(d(a) for a in sol))).amax(dim=0)
+
+
+def example_ocp_se3(dev):
+    """examples_torch/ocp_se3_nlp.py's fleet (B = 8 screws on SE(3) x R^3,
+    Mesh(), at most 6 passes, its SQP with the float32 tolerance and
+    target), the first card run of an NLP on SE(3), through the driver's
+    stage hook: every member Optimal (the example's assertion), every
+    member's KKT recomputed in float64 <= OCP_TOL, each pass's error
+    estimate within 1e-6 + 1e-3 x its float64 recomputation, one
+    admm_problem launch per lockstep SQP iteration; then admm_problem at
+    each pass's first lockstep subproblem batch (the first pass's lambda =
+    0 batch for one iteration, as the sweep's)."""
+    from examples_torch import _common, ocp_se3_nlp as ex
+    from smooth_feedback_tpu_torch.ocp import nlp_initial_guess, nlp_layout, ocp_to_nlp
+    from smooth_feedback_tpu_torch.ocp import solve as osolve
+    from smooth_feedback_tpu_torch.ocp.collocation import Mesh
+    from smooth_feedback_tpu_torch.solvers import sqp
+
+    name = "ocp_se3_nlp"
+    kw = dict(dtype=torch.float32, device=dev)
+    twists = ex.fleet_twists(EX_SE3_B, **kw)
+    make_flat = ex.flat_factory(**kw)
+    prm = ex.params(1e-4, 6, torch.float32, "cuda", verbose=False)
+    passes = []
+
+    def trace(stage, info):
+        if stage == "start":
+            if not passes:
+                flat0 = make_flat(twists[0])
+                z = nlp_initial_guess(flat0, info["mesh"], prm.tf_guess, **kw)
+                start = (z.expand(EX_SE3_B, -1).clone(), torch.zeros(
+                    (EX_SE3_B, nlp_layout(flat0, info["mesh"]).m), **kw))
+            else:
+                start = passes[-1]["next"]
+            passes.append(dict(mesh=info["mesh"], start=start))
+            reset_counts()
+        elif stage == "solve":
+            passes[-1].update(solve=info["nlpsol"], launches=read_counts())
+        elif stage == "rescue":
+            passes[-1].update(sol=info["nlpsol"], rescued=info["n_rescued"])
+        elif stage == "error":
+            passes[-1]["errs"] = info["errs"].amax(dim=0)
+        elif stage == "transfer":
+            passes[-1]["next"] = (info["z"], info["lam"])
+
+    t0 = time.perf_counter()
+    sol, mesh, info = osolve._solve_ocp_flat_batch_impl(make_flat, twists, Mesh(), prm,
+                                                       torch.float32, dev, trace)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = info.statuses
+    example_line(name, secs, f"{len(passes)} passes of at most 6 (float32 target "
+                 f"{prm.target_err:g}, SQP tol {prm.sqp.tol:g}; the example's 1e-4, 1e-7)",
+                 f"B={EX_SE3_B}, Optimal {int((st == 0).sum())}/{EX_SE3_B}, meshes "
+                 f"{[(q.N_ivals, q.N_colloc) for q in info.meshes]}, SQP iterations per pass "
+                 f"{[int(i.max()) for i in info.nlp_iters]}, rescued {info.rescued}, errors "
+                 f"{[float(f'{e:.4g}') for e in info.errors]}",
+                 [p["launches"] for p in passes])
+    require(bool((st == 0).all()), f"{name}: non-Optimal members in the fleet")
+    require(info.errors[-1] <= prm.target_err, f"{name}: final error {info.errors[-1]}")
+    for i, p in enumerate(passes):
+        require(p["launches"] == {"admm_shared": 0, "admm_lane": 0,
+                                  "admm_problem": int(p["solve"].iters.max())},
+                f"{name}: pass {i} launched {p['launches']} in {int(p['solve'].iters.max())} "
+                f"lockstep iterations")
+        e64 = se3_errors_f64(ex, p["mesh"], twists, p["sol"])
+        de = float((p["errs"].double().cpu() - e64).abs().max())
+        phase("examples", f"{name} pass {i}: mesh ({p['mesh'].N_ivals}, {p['mesh'].N_colloc}), "
+                          f"fleet-max errors {[float(f'{e:.4g}') for e in p['errs'].tolist()]}, "
+                          f"float64 recomputation {[float(f'{e:.4g}') for e in e64.tolist()]}, "
+                          f"max |d| {de:.3e} (bound 1e-6 + 1e-3 x float64's)")
+        require(bool(((p["errs"].double().cpu() - e64).abs() <= 1e-6 + 1e-3 * e64.abs()).all()),
+                f"{name}: pass {i}'s error estimate differs from its float64 recomputation")
+    kkt = se3_kkt_f64(ex, mesh, twists, sol)
+    phase("examples", f"{name}: float64 KKT on the final mesh, worst {float(kkt.max()):.3e} "
+                      f"(bound {OCP_TOL:g})")
+    require(float(kkt.max()) <= OCP_TOL, f"{name}: float64 KKT {float(kkt.max())}")
+    rows, worst = [], 0.0
+    for i, p in enumerate(passes):
+        make = lambda th, q=p["mesh"]: ocp_to_nlp(make_flat(th), q, **kw)
+        captured = {}
+        sqp._solve_nlp_sqp_batch_impl(make, twists, p["start"][0], dataclasses.replace(
+            prm.sqp, max_iter=1), p["start"][1],
+            lambda s, inf: captured.update(inf) if s == "qp" else None)
+        err, row, shape = example_problem_kernel(
+            f"{name} pass {i}, lockstep iteration 1", captured["qp"], prm.sqp.qp,
+            fixed=OCP_FIRST_ITERS if i == 0 else FIXED_ITERS, ws=captured["ws"])
+        worst = max(worst, err)
+        rows.append((row, shape))
+    return [p["launches"] for p in passes], (worst, rows)
+
+
+def example_ekf(dev):
+    """examples_torch/ekf_se2_localization.py and ekf_fleet_se2.py (B = 64,
+    both filters) at their defaults: the examples' assertions, and the
+    first EX_CPU_STEPS steps held to float64 on the same noise.  No
+    kernel."""
+    from examples_torch import ekf_fleet_se2 as fleet, ekf_se2_localization as single
+
+    counts = {}
+    for name, ex, kw in (("ekf_se2_localization", single, {}), ("ekf_fleet_se2", fleet, {"B": 64})):
+        steps, default = EX_STEPS[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = ex.run(steps, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs, counts[name] = time.perf_counter() - t0, read_counts()
+        errs = [out[k].double().cpu() for k in ("errs", "errs_sqrt") if k in out]
+        mean = lambda e: e.mean(dim=-1) if e.dim() > 1 else e
+        example_line(name, secs, f"{steps} of {default} steps", "pose error " + ", ".join(
+            f"{float(mean(e)[0]):.4f} -> {float(mean(e)[-1]):.5f}" for e in errs), counts[name])
+        require(counts[name] == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 0},
+                f"{name} launched a kernel")
+        # the examples' assertions: below 0.1 (0.05 for the fleet's mean) at
+        # their 200 steps, below the first step's at fewer
+        require(all(float(mean(e)[-1]) < ((0.1 if name == "ekf_se2_localization" else 0.05)
+                                          if steps >= 200 else float(mean(e)[0])) for e in errs),
+                f"{name}: final error")
+        errs_of = lambda o: torch.stack([o[k] for k in o if k.startswith("errs")])
+        held_to_f64(name, errs_of(ex.run(EX_CPU_STEPS, device=dev, **kw)),
+                    lambda dt, ex=ex, kw=kw: errs_of(ex.run(EX_CPU_STEPS, device="cpu", dtype=dt,
+                                                            **kw)))
+    return counts
+
+
+def examples_phase(dev):
+    """Examples 1-9 of examples_torch/ on the card.  Returns the launches of
+    each example's run and, per kernel, ``(example, worst error, row,
+    shape)`` of each new shape it was held at."""
+    launches, found = {}, {"admm_problem": [], "admm_shared": [], "admm_lane": []}
+    for name, fn, kernel in (("mpc_se3_rigidbody", example_mpc_se3, "admm_problem"),
+                             ("mpc_doubleintegrator", example_mpc_di, "admm_shared"),
+                             ("asif_doubleintegrator", example_asif_di, "admm_lane"),
+                             ("mpc_asif_vehicle", example_vehicle, "admm_lane"),
+                             ("ocp_doubleintegrator_qp", example_ocp_di_qp, "admm_problem")):
+        launches[name], (err, row, shape) = fn(dev)
+        found[kernel].append((name, err, row, shape))
+    launches["ocp_doubleintegrator_nlp"], (err, rows) = example_ocp_di_nlp(dev)
+    found["admm_problem"] += [(f"ocp_doubleintegrator_nlp pass {i}", err, row, shape)
+                              for i, (row, shape) in enumerate(rows)]
+    per_pass, (err, rows) = example_ocp_se3(dev)
+    launches["ocp_se3_nlp"] = {k: sum(c[k] for c in per_pass) for k in per_pass[0]}
+    found["admm_problem"] += [(f"ocp_se3_nlp pass {i}", err, row, shape)
+                              for i, (row, shape) in enumerate(rows)]
+    launches.update(example_ekf(dev))
+    return launches, found
 
 
 def main():
@@ -3055,6 +3570,13 @@ def main():
     phase("launches", f"ocp-refine {rcounts}; ocp-solve {scounts}; ocp-qp {qcounts}")
     mark("the refinement slice (ocp-refine, ocp-solve, ocp-qp)")
 
+    # the examples: examples_torch/ 1-9, each through its kernel route
+    xcounts, xfound = examples_phase(dev)
+    for name, found in xfound.items():
+        rows[name] = (max([rows[name][0]] + [f[1] for f in found]), rows[name][1])
+    phase("launches", f"examples {xcounts}")
+    mark("the examples (examples_torch/ 1-9)")
+
     by_path = {
         "admm_shared": {"condensed": launches["admm_shared"],
                         "vehicle-asif": vcounts["admm_shared"]},
@@ -3064,6 +3586,8 @@ def main():
                          "ocp-solve": scounts["admm_problem"], "ocp-qp": qcounts["admm_problem"]},
         "admm_lane": {"vehicle-asif": vcounts["admm_lane"], "lane": lcounts},
     }
+    for name in by_path:
+        by_path[name].update({f"examples/{ex}": c[name] for ex, c in xcounts.items() if c[name]})
     shapes = {
         "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64"],
         "admm_problem": [f"B={FLEET_B} n=163 m=99", f"B={ASIF_B} n=3 m=53"]
@@ -3073,6 +3597,8 @@ def main():
                         + [f"B=1 n={n} m={m}" for n, m in sshapes + [qshape]],
         "admm_lane": [f"B={ASIF_B} n=3 m=53"] + lshapes,
     }
+    for name, found in xfound.items():
+        shapes[name] += [f"B={b} n={n} m={m} (examples/{ex})" for ex, _, _, (b, n, m) in found]
     kernels = []
     for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():
         source, replaces = KERNELS[name]
@@ -3083,6 +3609,10 @@ def main():
             # no single PyTorch call runs a whole ADMM solve
             "library_ms": None,
             "launches_by_path": by_path[name], "shapes": shapes[name],
+            # member 0's solve at B = 1 at each example's shape
+            "example_rows": [{"path": f"examples/{ex}", "B": b, "n": n, "m": m, "ms": r[0],
+                              "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
+                              "max_abs_err": e} for ex, e, r, (b, n, m) in xfound[name]],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,6 +12,9 @@ exp/log/compose/inverse; the right Jacobians and adjoints fall back to
     Ad(g)        = d/dw log( g o exp(w) o g^{-1} )      |_{w=0}
     ad(v)        = d/ds Ad( exp(s v) )                  |_{s=0}
 
+The second-order derivatives ``d2r_exp``/``d2r_expinv`` fall back to one
+more ``jacfwd`` sweep of ``dr_exp``/``dr_expinv``.
+
 Conventions (right-trivialized): ``rplus(x, v) = x o exp(v)``,
 ``rminus(a, b) = log(b^{-1} o a)``.
 """
@@ -93,6 +96,16 @@ class LieGroup:
     def dl_expinv(self, v):
         """Inverse left Jacobian."""
         return self.dr_expinv(v) @ self.Ad(self.inverse(self.exp(v)))
+
+    # second-order derivatives: one more forward-mode sweep; the layout is
+    # out[i, j, k] = d dr_exp(v)[i, j] / d v_k
+    def d2r_exp(self, v):
+        """``d/dv dr_exp(v)`` with shape ``(ndof, ndof, ndof)``."""
+        return jacfwd(self.dr_exp)(v)
+
+    def d2r_expinv(self, v):
+        """``d/dv dr_expinv(v)`` with shape ``(ndof, ndof, ndof)``."""
+        return jacfwd(self.dr_expinv)(v)
 
     # ---------------------------------------------------------------- helpers
     def random(self, generator: torch.Generator, scale: float = 1.0, dtype=None):

@@ -19,13 +19,25 @@ Closed forms are given for the hot operations; the rest inherits the
 is written with ``torch.stack``/``torch.cat`` on the element's entries and no
 Python branch on values, so it runs under ``torch.func.vmap``.  SO3 and SE3
 work on 1-d slices of the element (``q[3:]``, never ``q[3]``) wherever a
-Python scalar enters, for the forward-mode fault ``_series`` describes.  The
-second-order forms (``d2r_exp``/``d2r_expinv``) follow with the NLP slice.
+Python scalar enters, for the forward-mode fault ``_series`` describes.
+
+The second-order derivatives ``d2r_exp``/``d2r_expinv`` (layout
+``out[i, j, k] = d dr_exp(v)[i, j] / d v_k``) have closed forms on every
+group: the Jacobians are polynomials in a matrix linear in ``v`` (``hat``,
+``ad``) with coefficients in ``|w|^2``, so each product is differentiated
+with the constant generators and each coefficient through the ``d*``
+series.  Their matrix products, and those of SO3's and SE3's first-order
+Jacobians they reuse, are broadcast sums (``_mm``), never ``matmul``, so
+they keep float32's precision on a GPU whatever
+``torch.backends.cuda.matmul.allow_tf32`` says (a TF32 product carries
+~1e-3 relative error into the hat-product chains).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _series as se
 from .base import LieGroup
@@ -68,6 +80,12 @@ class Rn(LieGroup):
 
     def dr_expinv(self, v):
         return torch.eye(self.n, dtype=v.dtype, device=v.device)
+
+    def d2r_exp(self, v):
+        return torch.zeros((self.n,) * 3, dtype=v.dtype, device=v.device)
+
+    def d2r_expinv(self, v):
+        return torch.zeros((self.n,) * 3, dtype=v.dtype, device=v.device)
 
     def is_commutative(self):
         return True
@@ -114,6 +132,12 @@ class _SO2(LieGroup):
     def dr_expinv(self, v):
         return torch.ones((1, 1), dtype=v.dtype, device=v.device)
 
+    def d2r_exp(self, v):
+        return torch.zeros((1, 1, 1), dtype=v.dtype, device=v.device)
+
+    def d2r_expinv(self, v):
+        return torch.zeros((1, 1, 1), dtype=v.dtype, device=v.device)
+
     def normalize(self, g):
         return g / torch.linalg.vector_norm(g)
 
@@ -127,6 +151,25 @@ class _SO2(LieGroup):
 def _sq(v):
     """``v @ v`` as a 1-element tensor."""
     return (v * v).sum(dim=0, keepdim=True)
+
+
+def _mm(a, b):
+    """Matrix product over the last axis of ``a`` and the second last of
+    ``b``, leading axes broadcast, as a broadcast sum (no TF32 on a GPU)."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(dim=-2)
+
+
+def _d_products(G, A):
+    """(i, l, k) stack of d(A A)/d v_k for A linear in v with generators
+    G[k] = dA/dv_k: G[k] A + A G[k]."""
+    return torch.movedim(_mm(G, A) + _mm(A, G), 0, -1)
+
+
+def _d2r_form(A, G, dc_lin, c_lin, dc_sq, c_sq):
+    """d/dv_k of ``c_lin A + c_sq A^2`` (the Jacobians' shared polynomial
+    form) with ``dc_*`` the coefficients' gradients: (i, j, k)."""
+    return (A[:, :, None] * dc_lin[None, None, :] + c_lin * torch.movedim(G, 0, -1)
+            + _mm(A, A)[:, :, None] * dc_sq[None, None, :] + c_sq * _d_products(G, A))
 
 
 def _hat3(w):
@@ -208,13 +251,26 @@ class _SO3(LieGroup):
         th2 = _sq(v)
         H = _hat3(v)
         eye = torch.eye(3, dtype=v.dtype, device=v.device)
-        return eye - se.cos1c2(th2) * H + se.sin3c2(th2) * (H @ H)
+        return eye - se.cos1c2(th2) * H + se.sin3c2(th2) * _mm(H, H)
 
     def dr_expinv(self, v):
         th2 = _sq(v)
         H = _hat3(v)
         eye = torch.eye(3, dtype=v.dtype, device=v.device)
-        return eye + 0.5 * H + se.jlinv2c2(th2) * (H @ H)
+        return eye + 0.5 * H + se.jlinv2c2(th2) * _mm(H, H)
+
+    # d/dv of the coefficient forms above; grad_v c(|v|^2) = 2 c'(|v|^2) v
+    def d2r_exp(self, v):
+        th2 = _sq(v)
+        G = _so3_generators(v.dtype, v.device)  # G[k] = d hat(v) / d v_k
+        return _d2r_form(_hat3(v), G, -2.0 * se.dcos1c2(th2) * v, -se.cos1c2(th2),
+                         2.0 * se.dsin3c2(th2) * v, se.sin3c2(th2))
+
+    def d2r_expinv(self, v):
+        th2 = _sq(v)
+        G = _so3_generators(v.dtype, v.device)
+        return _d2r_form(_hat3(v), G, torch.zeros_like(v), 0.5 * torch.ones_like(th2),
+                         2.0 * se.djlinv2c2(th2) * v, se.jlinv2c2(th2))
 
     def normalize(self, q):
         return q / torch.linalg.vector_norm(q)
@@ -224,6 +280,13 @@ class _SO3(LieGroup):
 
     def hat(self, v):
         return _hat3(v)
+
+
+# G[k] = d ad(v) / d v_k, the se(2) adjoint basis
+_SE2_GENERATORS = np.zeros((3, 3, 3))
+_SE2_GENERATORS[0, 1, 2] = -1.0
+_SE2_GENERATORS[1, 0, 2] = 1.0
+_SE2_GENERATORS[2, 0, 1], _SE2_GENERATORS[2, 1, 0] = -1.0, 1.0
 
 
 class _SE2(LieGroup):
@@ -290,6 +353,24 @@ class _SE2(LieGroup):
         A = self.ad(v)
         eye = torch.eye(3, dtype=v.dtype, device=v.device)
         return eye + 0.5 * A + se.jlinv2c2(w2) * (A @ A)
+
+    # second order: A is linear in v with constant generators, and the
+    # coefficients depend on v only through w = v[2] (a 1-element view)
+    def d2r_exp(self, v):
+        w = v[2:]
+        w2 = w * w
+        G = torch.as_tensor(_SE2_GENERATORS, dtype=v.dtype, device=v.device)
+        dw = torch.tensor([0.0, 0.0, 1.0], dtype=v.dtype, device=v.device) * (2.0 * w)
+        return _d2r_form(self.ad(v), G, -se.dcos1c2(w2) * dw, -se.cos1c2(w2),
+                         se.dsin3c2(w2) * dw, se.sin3c2(w2))
+
+    def d2r_expinv(self, v):
+        w = v[2:]
+        w2 = w * w
+        G = torch.as_tensor(_SE2_GENERATORS, dtype=v.dtype, device=v.device)
+        dw = torch.tensor([0.0, 0.0, 1.0], dtype=v.dtype, device=v.device) * (2.0 * w)
+        return _d2r_form(self.ad(v), G, torch.zeros_like(v), 0.5 * torch.ones_like(w2),
+                         se.djlinv2c2(w2) * dw, se.jlinv2c2(w2))
 
     def normalize(self, g):
         return torch.cat([g[:2], g[2:] / torch.linalg.vector_norm(g[2:])])
@@ -359,19 +440,85 @@ class _SE3(LieGroup):
         th2 = _sq(phi)
         rh = _hat3(rho)
         ph = _hat3(phi)
-        pr = ph @ rh
-        rp = rh @ ph
-        prp = pr @ ph
-        pp = ph @ ph
+        pr = _mm(ph, rh)
+        rp = _mm(rh, ph)
+        prp = _mm(pr, ph)
+        pp = _mm(ph, ph)
         m1 = se.sin3c2(th2)  # (t - sin t)/t^3
         m2 = se.cos4c2(th2)  # (1 - t^2/2 - cos t)/t^4  (negative near 0)
         m3 = se.sin5c2(th2)  # (t - sin t - t^3/6)/t^5  (negative near 0)
         return (
             0.5 * rh
             + m1 * (pr + rp + prp)
-            - m2 * (pp @ rh + rh @ pp - 3.0 * prp)
-            - 0.5 * (m2 - 3.0 * m3) * (prp @ ph + ph @ prp)
+            - m2 * (_mm(pp, rh) + _mm(rh, pp) - 3.0 * prp)
+            - 0.5 * (m2 - 3.0 * m3) * (_mm(prp, ph) + _mm(ph, prp))
         )
+
+    # Second order: _Q is linear in rho, so its rho-derivative is _Q at the
+    # basis vectors; the phi-derivative differentiates each hat product with
+    # the so(3) generators and each coefficient through the d*-series.
+    @staticmethod
+    def _dQ_dphi(rho, phi):
+        """(3, 3, 3): out[k] = d _Q(rho, phi) / d phi_k."""
+        th2 = _sq(phi)
+        rh = _hat3(rho)
+        ph = _hat3(phi)
+        G = _so3_generators(phi.dtype, phi.device)  # G[k] = d hat(phi) / d phi_k
+        m1, m2, m3 = se.sin3c2(th2), se.cos4c2(th2), se.sin5c2(th2)
+        dm1 = 2.0 * se.dsin3c2(th2) * phi  # (3,)
+        dm2 = 2.0 * se.dcos4c2(th2) * phi
+        dm3 = 2.0 * se.dsin5c2(th2) * phi
+
+        pr = _mm(ph, rh)
+        prp = _mm(pr, ph)
+        pp = _mm(ph, ph)
+        T1 = pr + _mm(rh, ph) + prp
+        T2 = _mm(pp, rh) + _mm(rh, pp) - 3.0 * prp
+        T3 = _mm(prp, ph) + _mm(ph, prp)
+
+        dpr = _mm(G, rh)
+        dprp = _mm(dpr, ph) + _mm(pr, G)
+        dpp = _mm(G, ph) + _mm(ph, G)
+        dT1 = dpr + _mm(rh, G) + dprp
+        dT2 = _mm(dpp, rh) + _mm(rh, dpp) - 3.0 * dprp
+        dT3 = _mm(dprp, ph) + _mm(prp, G) + _mm(G, prp) + _mm(ph, dprp)
+        return (
+            dm1[:, None, None] * T1[None]
+            + m1 * dT1
+            - dm2[:, None, None] * T2[None]
+            - m2 * dT2
+            - 0.5 * (dm2 - 3.0 * dm3)[:, None, None] * T3[None]
+            - 0.5 * (m2 - 3.0 * m3) * dT3
+        )
+
+    def _dQr_blocks(self, x):
+        """(3, 3, 6): the derivative of dr_exp's Q-block ``_Q(-v, -w)`` with
+        respect to the whole tangent x = (v, w)."""
+        phi = -x[3:]
+        eye = torch.eye(3, dtype=x.dtype, device=x.device)
+        dQ_v = torch.stack([self._Q(-eye[k], phi) for k in range(3)])
+        dQ_w = -self._dQ_dphi(-x[:3], phi)  # the chain through phi = -w
+        return torch.movedim(torch.cat([dQ_v, dQ_w]), 0, -1)
+
+    @staticmethod
+    def _blocks3(a, b, c):
+        """The (6, 6, 6) stack [[a, b], [0, c]] of (3, 3, 6) blocks."""
+        z = torch.zeros_like(a)
+        return torch.cat([torch.cat([a, b], dim=1), torch.cat([z, c], dim=1)])
+
+    def d2r_exp(self, x):
+        # Jr depends on w only
+        dJ = F.pad(SO3.d2r_exp(x[3:]), (3, 0))
+        return self._blocks3(dJ, self._dQr_blocks(x), dJ)
+
+    def d2r_expinv(self, x):
+        Ji = SO3.dr_expinv(x[3:])
+        Q = self._Q(-x[:3], -x[3:])
+        dJi = F.pad(SO3.d2r_expinv(x[3:]), (3, 0))  # (3, 3, 6)
+        # d(-Ji Q Ji) by the product rule, derivative axis first
+        dJi_k, dQ_k = torch.movedim(dJi, -1, 0), torch.movedim(self._dQr_blocks(x), -1, 0)
+        dB = -(_mm(_mm(dJi_k, Q), Ji) + _mm(_mm(Ji, dQ_k), Ji) + _mm(_mm(Ji, Q), dJi_k))
+        return self._blocks3(dJi, torch.movedim(dB, 0, -1), dJi)
 
     def dr_exp(self, x):
         v, w = -x[:3], -x[3:]
@@ -381,7 +528,7 @@ class _SE3(LieGroup):
     def dr_expinv(self, x):
         Ji = SO3.dr_expinv(x[3:])  # = Jl3(w)^{-1} since Jr(w) = Jl(-w)
         Q = self._Q(-x[:3], -x[3:])
-        return self._blocks(Ji, -(Ji @ Q @ Ji), Ji)
+        return self._blocks(Ji, -_mm(_mm(Ji, Q), Ji), Ji)
 
     def normalize(self, g):
         return torch.cat([g[:3], g[3:] / torch.linalg.vector_norm(g[3:])])
@@ -457,6 +604,22 @@ class Bundle(LieGroup):
 
     def dr_expinv(self, v):
         return self._blockdiag([p.dr_expinv(vi) for p, vi in zip(self.parts, self._dsplit(v))])
+
+    def _blockdiag3(self, tensors):
+        """(ndof, ndof, ndof) block-diagonal assembly of the parts' (d, d, d)
+        second-order tensors (cross-part derivatives vanish on a direct
+        product), padded rather than written in place, for ``vmap``."""
+        out = 0.0
+        for i, t in enumerate(tensors):
+            lo, hi = self._doff[i], self.ndof - self._doff[i + 1]
+            out = out + F.pad(t, (lo, hi) * 3)
+        return out
+
+    def d2r_exp(self, v):
+        return self._blockdiag3([p.d2r_exp(vi) for p, vi in zip(self.parts, self._dsplit(v))])
+
+    def d2r_expinv(self, v):
+        return self._blockdiag3([p.d2r_expinv(vi) for p, vi in zip(self.parts, self._dsplit(v))])
 
     def normalize(self, g):
         return torch.cat([p.normalize(gi) for p, gi in zip(self.parts, self._psplit(g))])

@@ -23,6 +23,7 @@ from .types import (
     QPSolutionStatus,
     QPSolverParams,
     QuadraticProgram,
+    random_qp,
     warmstart_like,
 )
 
@@ -40,6 +41,7 @@ __all__ = [
     "shared_kernel_args",
     "per_problem_kernel_args",
     "lane_kernel_args",
+    "random_qp",
     "warmstart_like",
     "admm_iterate_cuda",
     "admm_iterate_cuda_shared",

@@ -97,6 +97,39 @@ class QPSolverParams:
     verbose: bool = False
 
 
+def random_qp(
+    n: int,
+    m: int,
+    density: float = 1.0,
+    dtype=torch.float64,
+    device=None,
+    generator: torch.Generator | None = None,
+) -> QuadraticProgram:
+    """Random feasible QP, the JAX package's construction: P = M M' (PSD)
+    with M's entries kept with probability ``density``, A ~ N(0, 1), and
+    bounds straddling A x0 for a random x0 (spread |N(0, 1)| + 0.1).
+
+    The draws come from ``generator`` (a ``torch.Generator``, by default one
+    seeded with 0 on ``device``), on ``device`` (by default the generator's).
+    This is not ``jax.random``'s stream: the same seed gives another problem
+    than the JAX package's ``random_qp``, of the same distribution."""
+    if generator is None:
+        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+    device = generator.device if device is None else torch.device(device)
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    M = torch.randn((n, n), **kw)
+    if density < 1.0:
+        keep = torch.rand((n, n), dtype=dtype, device=device, generator=generator) < density
+        M = M * keep
+    P = M @ M.T
+    q = torch.randn((n,), **kw)
+    A = torch.randn((m, n), **kw)
+    x0 = torch.randn((n,), **kw)
+    center = A @ x0
+    spread = torch.randn((m,), **kw).abs() + 0.1
+    return QuadraticProgram(P=P, q=q, A=A, l=center - spread, u=center + spread)
+
+
 def warmstart_like(qp: QuadraticProgram) -> QPSolution:
     """Zero warmstart with shapes, dtype and device matching ``qp``."""
     n = qp.A.shape[-1]

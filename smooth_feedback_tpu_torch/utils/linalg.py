@@ -6,13 +6,29 @@ The JAX package keeps the batch on the TPU's 128 lanes with these; the ASIF
 fleet transcription carries its sensitivity stack this way, and the EKF fleet
 states keep their covariance stacks in this layout at the public boundary.
 Each helper is broadcast-multiply-sum over the trailing batch axis, Python-
-unrolled over the small static matrix indices.  ``d2r_fog`` comes with the
-NLP slice.
+unrolled over the small static matrix indices.  Also the Hessian-of-
+composition rule ``d2r_fog``.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def d2r_fog(Jf, Hf, Jg, Hg):
+    """Hessian of the composition ``f o g`` from the parts.
+
+    Args (dense layouts):
+      Jf: (No, Ny)       Jacobian of f at g(x)
+      Hf: (No, Ny, Ny)   Hessians of each output of f
+      Jg: (Ny, Nx)       Jacobian of g at x
+      Hg: (Ny, Nx, Nx)   Hessians of each output of g
+
+    Returns (No, Nx, Nx):  H_k = Jg' Hf_k Jg + sum_j Jf[k, j] Hg_j.
+    """
+    first = torch.einsum("yx,kyz,zw->kxw", Jg, Hf, Jg)
+    second = torch.einsum("ky,yxw->kxw", Jf, Hg)
+    return first + second
 
 
 def mm_lane(A, B):

@@ -15,9 +15,12 @@ into this process, so every build runs on the same inputs:
     checkout's own build), batched: 20 iterations from the cold start and
     the path's warm solve (4000 iterations, every member runs to max_iter)
     with every tolerance 0.  Per vector, the largest distance from the
-    float64 plain run beside the float32 plain version's, and |kernel -
-    plain| against chip_smoke's fixed-iteration bound (1e-4 x scale + 2 x
-    the float32 plain version's distance from float64);
+    float64 plain run beside the float32 plain version's, |kernel - plain|
+    against chip_smoke's fixed-iteration bound (1e-4 x scale + 2 x the
+    float32 plain version's distance from float64), and the distances
+    relative to each member's scale; the kernel's worst of those against
+    chip_smoke's float64 rule (OF_F64_FACTOR x the plain version's worst +
+    OF_F64_FLOOR);
   - problem_family at (147, 294), B = 64, with the OCP sweep's inner
     settings: statuses and iteration counts equal to the float64 run's,
     beside the float32 plain version's;
@@ -143,16 +146,24 @@ def fixed(prm, iters):
 
 def distances(cs, k, r, d):
     """Per vector: max |kernel - f64|, max |plain - f64|, max |kernel -
-    plain|, chip_smoke's bound and whether it holds."""
+    plain| against chip_smoke's fixed-iteration bound, and the largest
+    distances from f64 relative to each member's scale; then the kernel's
+    worst of those against chip_smoke's float64 rule for the solve that runs
+    to max_iter (``f64_distance_check``)."""
     rows = []
-    for name, kt, rt, dt in zip("xzy", k[:3], r[:3], d[:3]):
+    rel_k, rel_r = cs.f64_distances(k, d), cs.f64_distances(r, d)
+    for name, kt, rt, dt, rk, rr in zip("xzy", k[:3], r[:3], d[:3], rel_k, rel_r):
         kd = float((kt.double() - dt).abs().max())
         rd = float((rt.double() - dt).abs().max())
         kr = float((kt - rt).abs().max())
         scale = max(1.0, float(dt.abs().max()))
         bnd = cs.ITER_TOL * scale + 2 * rd
         rows.append(f"{name}: kernel-f64 {kd:.4e}, plain-f64 {rd:.4e}, kernel-plain {kr:.4e} "
-                    f"(bound {bnd:.4e}: {'ok' if kr <= bnd else 'FAILS'})")
+                    f"(fixed-iteration bound {bnd:.4e}: {'ok' if kr <= bnd else 'FAILS'}); "
+                    f"relative kernel-f64 {rk:.4e}, plain-f64 {rr:.4e}")
+    rel_b = cs.f64_bound(rel_r)
+    rows.append(f"float64 rule: the kernel's worst {max(rel_k):.4e} against {rel_b:.4e} "
+                f"({'ok' if max(rel_k) <= rel_b else 'FAILS'})")
     return "; ".join(rows)
 
 

@@ -11,10 +11,11 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "smooth_feedback_tpu_torch"
+EXAMPLES = ROOT / "examples_torch"
 
 
 def _modules():
-    for path in sorted(PKG.rglob("*.py")):
+    for path in sorted([*PKG.rglob("*.py"), *EXAMPLES.glob("*.py")]):
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield ".".join(parts)
@@ -29,8 +30,10 @@ def test_port_imports_without_jax():
               "controllers.asif", "controllers.pid", "estimators", "estimators.ekf",
               "utils.compensated", "utils.bounds", "utils.linalg", "utils.spline", "nlp",
               "ocp.nlp", "ocp.flatten", "ocp.to_nlp", "ocp.solve", "ocp.collocation.functions",
-              "solvers", "solvers.sqp"):
+              "solvers", "solvers.sqp", "compat", "compat.scipy_nlp", "compat.osqp_bridge",
+              "compat.ipopt_bridge", "utils.flops"):
         assert f"smooth_feedback_tpu_torch.{m}" in mods
+    assert len([m for m in mods if m.startswith("examples_torch.")]) >= 13
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -49,7 +52,9 @@ def test_port_imports_without_jax():
 
 
 def test_port_source_has_no_jax_import():
-    """No source file of the port imports jax, at top level or lazily."""
-    pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
-    hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    """No source file of the port or of its examples imports jax or the
+    JAX package, at top level or lazily."""
+    pat = re.compile(r"^\s*(import jax|from jax|import smooth_feedback_tpu\b(?!_torch)"
+                     r"|from smooth_feedback_tpu\b(?!_torch))", re.M)
+    hits = [str(p) for p in [*PKG.rglob("*.py"), *EXAMPLES.glob("*.py")] if pat.search(p.read_text())]
     assert not hits, hits
