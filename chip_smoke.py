@@ -396,14 +396,17 @@ def layout_phase():
     streamed = lib.admm_problem_route(600, 600, ck.PROBLEM_WARPS, ctypes.byref(smem))
     require(streamed == 0 and ck.problem_route(600, 600)[0] == "streaming",
             "n = m = 600 is not streamed")
-    # admm_lane at the ASIF's and the lane phase's shapes; n = m = 128 refused
-    for b, n, m in [(ASIF_B, 3, 53), *((LANE_B, k, k) for k in LANE_SHAPES),
-                    (LANE_B, *LANE_ADAPTIVE_SHAPE)]:
-        out = (ctypes.c_int * 2)()
+    # admm_lane at the ASIF's, the examples' and the lane phase's shapes, the
+    # boundary shapes (32, 1140) and (105, 105); n = m = 128 refused
+    for b, n, m in [(ASIF_B, 3, 53), (1, 2, 32), (1, 3, 53), *((LANE_B, k, k) for k in LANE_SHAPES),
+                    (LANE_B, *LANE_ADAPTIVE_SHAPE), (4, 32, 1140), (4, 105, 105)]:
+        out = (ctypes.c_int * 4)()
         require(lib.admm_lane_plan(b, n, m, out) == 1, f"admm_lane_plan refused ({n}, {m})")
         require(tuple(out) == ck.lane_plan(b, n, m), "lane_plan does not mirror the library")
         phase("layout", f"admm_lane at B={b}, n={n}, m={m}: {out[0]} problems (warps) and "
-                        f"{out[1]} bytes of shared memory a block")
+                        f"{out[1]} bytes of shared memory a block, P and A in "
+                        f"{'shared' if out[2] else 'device'} memory, "
+                        + (f"register path (n = {out[3]})" if out[3] else "a lane per output"))
     n = LANE_FALLTHROUGH_N
     require(lib.admm_lane_plan(4, n, n, out) == 0 and not ck.lane_fits(n, n),
             f"n = m = {n} fits the lane kernel")
@@ -447,10 +450,11 @@ def initial_states(dev):
 
 def time_ms(fn, reps):
     """Mean device time of one call of ``fn`` in ms: one pair of events around
-    ``reps`` back-to-back calls (after a warm-up).  Every time in the kernels
-    line is taken this way.  Where the host needs longer to enqueue a call
-    than the card to run it, this reads the host's pace: see
-    :func:`time_single_ms`."""
+    ``reps`` back-to-back calls (after a warm-up).  Every ``ms`` and
+    ``plain_ms`` in the kernels line is taken this way.  Where the host
+    needs longer to enqueue a call than the card to run it, this reads the
+    host's pace: the kernels line's ``single_ms`` is :func:`time_single_ms`'s
+    reading of the same call."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -510,11 +514,11 @@ def f64(args):
 
 def wrappers():
     from smooth_feedback_tpu_torch.qp import (
-        admm_iterate_cuda, admm_iterate_cuda_lane, admm_iterate_cuda_shared,
+        admm_iterate_cuda, admm_iterate_cuda_shared, admm_solve_cuda_lane,
     )
 
     return {"admm_shared": admm_iterate_cuda_shared, "admm_problem": admm_iterate_cuda,
-            "admm_lane": admm_iterate_cuda_lane}
+            "admm_lane": admm_solve_cuda_lane}
 
 
 def reset_counts():
@@ -719,93 +723,183 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
     return err_same, k
 
 
-def lane_bound(args, out, prm):
+def stored_bytes(t):
+    """Bytes a tensor's distinct entries take (an axis of stride 0 counts
+    once): what a kernel must read of it at least."""
+    if t is None:
+        return 0
+    return t.element_size() * int(np.prod([s for s, st in zip(t.shape, t.stride()) if st != 0]))
+
+
+def lane_bound(args, out, prm, scaled=False):
     """The least time the card could take for one admm_lane call, in ms, and
-    what sets it: every input read once and every output written once at the
-    HBM rate, against the FMAs of the iterations (3 products, 2 more a KKT
-    refinement sweep), checks (6 products) and factorizations (A' diag(rho)
-    A, the Cholesky factor, the inverse; one a member when no factors are
-    given, one per refactorization) this call's members ran, at the f32
-    rate."""
-    n, m = args[1].shape[-1], args[3].shape[-1]
-    moved = sum(a.numel() * a.element_size() for a in (*args, *out) if a is not None)
-    iters, refactors = out[4].to(torch.int64), out[7].to(torch.int64)
+    what sets it: every input read once (an operand the batch shares, once)
+    and every output the call writes once (the scaled iterates and the
+    scalings only for a call with ``scaled``; ``out`` may be a solve that
+    returned them) at the HBM rate, against the FLOPs this
+    call's members ran at the f32 rate: the Ruiz sweeps each member ran (3
+    n^2 + 2 m n products a sweep), the scaled matrices, vectors and warm
+    start (4 m n + 2 n + 4 m), the factorizations (A' diag(rho) A, the
+    Cholesky factor, the inverse: one a member when no factors are given,
+    one per refactorization), the iterations (3 products, 2 more a KKT
+    refinement sweep), the checks (6 products) and the epilogue (P x and
+    the objective, 2 n^2 + 4 n + 2 m)."""
+    P, q, A, l, u, xw, yw, factors = args
+    m, n = A.shape[-2:]
+    moved = sum(stored_bytes(t) for t in (P, q, A, l, u, xw, yw, *(factors or ())))
+    written = out if scaled else out[:out._fields.index("x")]
+    moved += sum(stored_bytes(t) for t in written if t is not None)
+    iters, refactors = out.iters.to(torch.int64), out.refactors.to(torch.int64)
+    per_sweep = 3 * n * n + 2 * m * n
+    fixed = 4 * m * n + 2 * n + 4 * m + 2 * n * n + 4 * n + 2 * m
     per_iter = 2 * (2 * m * n + n * n + 2 * max(0, prm.kkt_refine_iters) * n * n)
     per_check = 2 * (4 * m * n + 2 * n * n)
     per_factor = 2 * (n * n * m + n ** 3 // 3 + n ** 3)
-    factors = refactors + (1 if args[12] is None else 0)
-    flops = float((iters * per_iter + n_checks(iters, prm.stop_check_iter) * per_check
-                   + factors * per_factor).sum())
+    factorizations = refactors + (1 if factors is None else 0)
+    flops = float((out.sweeps.to(torch.int64) * per_sweep + fixed + iters * per_iter
+                   + n_checks(iters, prm.stop_check_iter) * per_check
+                   + factorizations * per_factor).sum())
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def lane_iterates(solve, **kw):
+    """A lane whole solve as the fixed-iteration check reads a kernel's
+    outputs: ``(x, z, y, status, iters, pres, dres)`` in scaled variables."""
+    def run(prm, *args):
+        o = solve(prm, *args, **kw)
+        return o.x, o.z, o.y, o.status, o.iters, o.pres, o.dres
+    return run
+
+
+def lane_fixed_check(cold, prm, label):
+    """admm_lane and its plain version for FIXED_ITERS iterations with every
+    tolerance 0 and adaptive rho off, from a seeded random warm start (std
+    0.1; a member whose input is already safe has the cold start as its
+    exact solution), by fixed_iteration_check's rule.  Returns its worst
+    error."""
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane, admm_solve_lane_reference
+
+    rng = np.random.default_rng(SEED)
+    noisy = list(cold)
+    for i in (5, 6):  # the unscaled warm start's primal and dual
+        shape = (cold[2].shape[0], cold[2].shape[2 if i == 5 else 1])
+        noisy[i] = torch.as_tensor(0.1 * rng.standard_normal(shape), dtype=torch.float32,
+                                   device=cold[2].device)
+    return fixed_iteration_check(lane_iterates(admm_solve_cuda_lane, scaled=True), tuple(noisy),
+                                 dataclasses.replace(prm, adaptive_rho=False),
+                                 f"{label}, a seeded random warm start (std 0.1)",
+                                 plain=lane_iterates(admm_solve_lane_reference))
+
+
 def lane_compare(name, args, prm):
-    """One whole solve through admm_lane against its plain version in f32
-    (refactorizing the adapting members alone, as the kernel does) and in
-    f64.  Statuses against the f64 run: equal on as many members as the
-    f32 plain version's, less max(1, B / 128).  With a static rho, the
-    iteration counts against the f32 plain version (equal on 99.5 % of
-    members or, where the f32 plain version itself splits from the f64 run
-    more often, matching the f64 run at least as often as it does, within
-    half a point) and, where they agree, each member's unscaled primal
-    within PRIMAL_TOL of its scale max(1, |x|) plus twice the f32 plain
-    version's distance from the f64 run.  Adaptive rho makes discrete
-    decisions from f32 residuals, and two f32 runs then take other rho
-    paths to other points within eps: the iteration and refactorization
-    counts are judged as compare_with_plain's noisy mode judges the OCP
-    subproblems (equal to the f64 run's on as many members as the f32 plain
-    version's, less max(1, B / 32)), the primal not at all.  Every point the
-    kernel calls Optimal passes the f64 stopping test.  Returns the largest
-    primal difference where it is judged and the kernel's outputs."""
+    """One whole solve through admm_lane (scaling, factorization, loop and
+    unscaling in the kernel) against its plain version in f32 (refactorizing
+    the adapting members alone, as the kernel does) and in f64.  Statuses
+    against the f64 run: equal on as many members as the f32 plain
+    version's, less max(1, B / 128).  The Ruiz sweeps each member ran, and,
+    with a static rho, the iteration counts, against the f32 plain version
+    (equal on 99.5 % of members or, where the f32 plain version itself
+    splits from the f64 run more often, matching the f64 run at least as
+    often as it does, within half a point); where the iteration counts
+    agree, each member's unscaled primal within PRIMAL_TOL of its scale
+    max(1, |x|) plus twice the f32 plain version's distance from the f64
+    run, and the objective within PRIMAL_TOL of max(1, |objective|) plus
+    twice that distance.  Adaptive rho makes discrete decisions from f32
+    residuals, and two f32 runs then take other rho paths to other points
+    within eps: the iteration and refactorization counts are judged as
+    compare_with_plain's noisy mode judges the OCP subproblems (equal to
+    the f64 run's on as many members as the f32 plain version's, less
+    max(1, B / 32)), the primal not at all.  Every point the kernel calls
+    Optimal passes the f64 stopping test.  Returns the largest primal
+    difference where it is judged and the kernel's outputs."""
     from smooth_feedback_tpu_torch.qp import (
-        QuadraticProgram, admm_iterate_cuda_lane, admm_iterate_lane_reference,
+        QuadraticProgram, admm_solve_cuda_lane, admm_solve_lane_reference,
     )
 
-    k = admm_iterate_cuda_lane(prm, *args)
-    r = admm_iterate_lane_reference(prm, *args, member_refactor=True)
-    d = admm_iterate_lane_reference(prm, *f64(args), member_refactor=True)
+    k = admm_solve_cuda_lane(prm, *args, scaled=True)
+    r = admm_solve_lane_reference(prm, *args, member_refactor=True)
+    d = admm_solve_lane_reference(prm, *f64(args), member_refactor=True)
     torch.cuda.synchronize()
-    B_ = k[3].numel()
+    B_ = k.status.numel()
     share = lambda mask: float(mask.float().mean())
-    n_kd, n_rd = int((k[3] == d[3]).sum()), int((r[3] == d[3]).sum())
+    n_kd, n_rd = int((k.status == d.status).sum()), int((r.status == d.status).sum())
     allow = max(1, B_ // 128)
     counts_ok, rows = True, []
-    for label, i in (("iters", 4), ("refactors", 7)):
-        kr, kd, rd = share(k[i] == r[i]), share(k[i] == d[i]), share(r[i] == d[i])
+    for label in ("iters", "refactors", "sweeps"):
+        ko, ro, do = getattr(k, label), getattr(r, label), getattr(d, label)
+        kr, kd, rd = share(ko == ro), share(ko == do), share(ro == do)
         rows.append(f"{label} equal kernel/plain {kr * 100:.2f}% kernel/plain-f64 {kd * 100:.2f}% "
                     f"plain/plain-f64 {rd * 100:.2f}%")
-        if prm.adaptive_rho:
-            counts_ok = counts_ok and int((k[i] == d[i]).sum()) >= int((r[i] == d[i]).sum()) - max(1, B_ // 32)
+        if prm.adaptive_rho and label != "sweeps":
+            counts_ok = counts_ok and int((ko == do).sum()) >= int((ro == do).sum()) - max(1, B_ // 32)
         else:
             counts_ok = counts_ok and (kr >= 0.995 or (rd < 0.995 and kd >= rd - 0.005))
-    sx = args[6].double()
-    xk, xr, xd = (o[0].double() * sx for o in (k, r, d))
+    xk, xr, xd = (o.primal.double() for o in (k, r, d))
     scale = xd.abs().amax(dim=1).clamp(min=1.0)
     err = (xk - xr).abs().amax(dim=1)
     floor = (xr - xd).abs().amax(dim=1)
-    same = (k[4] == r[4]) & (not prm.adaptive_rho)
-    primal_ok = bool((err <= PRIMAL_TOL * scale + 2 * floor)[same].all())
+    ok_, or_, od = (o.objective.double() for o in (k, r, d))
+    obj_err = (ok_ - or_).abs()
+    obj_ok = obj_err <= PRIMAL_TOL * od.abs().clamp(min=1.0) + 2 * (or_ - od).abs()
+    same = (k.iters == r.iters) & (not prm.adaptive_rho)
+    primal_ok = bool((err <= PRIMAL_TOL * scale + 2 * floor)[same].all() and obj_ok[same].all())
     worst = float(err[same].max()) if bool(same.any()) else 0.0
-    slack = residual_slack(QuadraticProgram(*args[:5]), args, k, prm, (args[6], args[7], args[5]))
-    ref = lambda o: (f"mean {float(o[7].float().mean()):.3f} max {int(o[7].max())} "
-                     f"members refactorized {int((o[7] > 0).sum())}")
+    slack = residual_slack(QuadraticProgram(*args[:5]), args, (k.x, k.z, k.y, k.status), prm,
+                           (k.sx, k.sy, k.c))
+    ref = lambda o: (f"mean {float(o.refactors.float().mean()):.3f} max {int(o.refactors.max())} "
+                     f"members refactorized {int((o.refactors > 0).sum())}")
     phase("kernel", f"{name}: statuses equal to the f64 run's in {n_kd} of {B_} members (f32 plain "
-                    f"{n_rd}; allowance {allow}), Optimal kernel {share(k[3] == 0) * 100:.2f}% "
-                    f"plain-f64 {share(d[3] == 0) * 100:.2f}%; " + "; ".join(rows)
-                    + f"; mean iters kernel {float(k[4].float().mean()):.2f} plain "
-                    f"{float(r[4].float().mean()):.2f}; refactorizations per member: kernel "
-                    f"{ref(k)}, plain {ref(r)}; max |dprimal| equal-iters "
+                    f"{n_rd}; allowance {allow}), Optimal kernel {share(k.status == 0) * 100:.2f}% "
+                    f"plain-f64 {share(d.status == 0) * 100:.2f}%; " + "; ".join(rows)
+                    + f"; mean iters kernel {float(k.iters.float().mean()):.2f} plain "
+                    f"{float(r.iters.float().mean()):.2f}; Ruiz sweeps kernel mean "
+                    f"{float(k.sweeps.float().mean()):.2f} max {int(k.sweeps.max())}; "
+                    f"refactorizations per member: kernel {ref(k)}, plain {ref(r)}; max |dprimal| "
+                    f"equal-iters "
                     + (f"(adaptive rho: not judged; all {float(err.max()):.3e})" if prm.adaptive_rho
-                       else f"{worst:.3e} (bound {PRIMAL_TOL:g} x scale + 2 x floor)")
-                    + f"; kernel's Optimal points re-checked in "
-                    f"f64: worst residual / tolerance {slack:.4f}")
+                       else f"{worst:.3e}, max |dobjective| {float(obj_err[same].max()) if bool(same.any()) else 0.0:.3e} "
+                            f"(bound {PRIMAL_TOL:g} x scale + 2 x floor)")
+                    + f"; kernel's Optimal points re-checked in f64: worst residual / tolerance "
+                    f"{slack:.4f}")
     require(n_kd >= n_rd - allow, f"{name}: statuses match the f64 run's in {n_kd} members, the "
                                   f"f32 plain version's in {n_rd}")
-    require(counts_ok, f"{name}: iteration or refactorization counts differ beyond the rule")
-    require(primal_ok, f"{name}: the primal differs beyond the bound")
+    require(counts_ok, f"{name}: iteration, refactorization or sweep counts differ beyond the rule")
+    require(primal_ok, f"{name}: the primal or the objective differs beyond the bound")
     require(slack <= 1.0, f"{name}: an Optimal point fails the f64 residual test")
     return worst, k
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock in MHz (nvidia-smi), which converts the
+    kernel's clock64 counts to time (an upper bound on the rate: a card
+    under a power cap may run slower)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(smi.stdout.split()[0]) if smi.returncode == 0 else float("nan")
+
+
+def lane_clock_split(name, args, prm, k):
+    """The clock64 split of one warp, the member with the most iterations
+    (it sets the launch's time): prologue (scaling, rho, scaled matrices,
+    warm start), factorization, iterations without and with a check,
+    refactorizations, epilogue."""
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane
+
+    member = int(torch.argmax(k.iters))
+    clocks = torch.zeros(8, dtype=torch.int64, device=k.iters.device)
+    admm_solve_cuda_lane(prm, *args, clocks=clocks, clock_member=member)
+    c = clocks.tolist()
+    total, mhz = sum(c[:6]), sm_clock_mhz()
+    parts = ("prologue", "factorization", "iterations", "checks", "refactorizations", "epilogue")
+    phase("kernel", f"{name}: clock64 split of member {member}'s warp ({int(k.iters[member])} "
+                    f"iterations, {c[7]} of them with a check, {int(k.refactors[member])} "
+                    f"refactorizations, {int(k.sweeps[member])} Ruiz sweeps): "
+                    + ", ".join(f"{p} {v} cycles ({v / max(1, total) * 100:.1f}%)"
+                                for p, v in zip(parts, c[:6]))
+                    + f"; {c[2] / max(1, c[6]):.0f} cycles an iteration without a check, "
+                    f"{c[3] / max(1, c[7]):.0f} with one; {total} cycles, {total / mhz:.2f} us at "
+                    f"the card's highest SM clock ({mhz:.0f} MHz)")
 
 
 def kernel_phase(step, dev):
@@ -846,6 +940,7 @@ def kernel_phase(step, dev):
             *bound(args, k, qprm),
         )
         single = time_single_ms(lambda: admm_iterate_cuda_shared(qprm, *args), 20)
+        rows[name] += (single,)
         phase("kernel", f"shared {name}: kernel {rows[name][0]:.4f} ms, plain "
                         f"{rows[name][1]:.4f} ms per solve at B={B}, n=m={n} (means of "
                         f"back-to-back calls; median of single kernel launches {single:.4f} "
@@ -990,6 +1085,7 @@ def problem_kernel_phase(step, dev):
             *bound(args, k, qprm),
         )
         single = time_single_ms(lambda: admm_iterate_cuda(qprm, *args), 10)
+        rows[name] += (single,)
         phase("kernel", f"per-problem {name}: kernel {rows[name][0]:.4f} ms, plain "
                         f"{rows[name][1]:.4f} ms per solve at B={FLEET_B}, n={n}, m={m} (means "
                         f"of back-to-back calls; median of single kernel launches {single:.4f} "
@@ -1256,9 +1352,12 @@ def vehicle_asif_phase(parts, dev):
     X, f, h, mpc, mws0, asif, aws0 = parts
     xs = asif_initial(X, dev)
     mws, aws = batch_ws(mws0, ASIF_B), batch_ws(aws0, ASIF_B)
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
+
     steps = ASIF_WARM + ASIF_STEPS
     kept, step_s, m_st, a_st, a_it, hmins = [], [], [], [], [], []
     reset_counts()
+    sweeps = qsolver.lane_ruiz_sweeps
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1277,7 +1376,7 @@ def vehicle_asif_phase(parts, dev):
         a_st.append(a.status)
         a_it.append(a.warmstart.iters)
         hmins.append(hmin)
-    counts = read_counts()
+    counts, sweeps = read_counts(), qsolver.lane_ruiz_sweeps - sweeps
     m_opt = float((torch.stack(m_st) == 0).float().mean())
     a_opt = float((torch.stack(a_st) == 0).float().mean())
     h_min = float(torch.stack(hmins).min())
@@ -1285,7 +1384,8 @@ def vehicle_asif_phase(parts, dev):
     phase("vehicle-asif", f"{steps} steps ({ASIF_WARM} warm-up, {ASIF_STEPS} timed) x B={ASIF_B}: "
                           f"MPC Optimal {m_opt * 100:.3f}%, ASIF Optimal {a_opt * 100:.3f}% (mean "
                           f"ASIF iters {float(torch.stack(a_it).float().mean()):.3f}), launches "
-                          f"{counts}, min barrier {h_min:.6f}, median timed step {med * 1e3:.3f} ms "
+                          f"{counts}, torch Ruiz sweeps {sweeps}, min barrier {h_min:.6f}, "
+                          f"median timed step {med * 1e3:.3f} ms "
                           f"(min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}), "
                           f"{ASIF_B / med:.1f} MPC+ASIF steps/s")
     require(h_min > 0.0, f"safety: min barrier {h_min} <= 0")
@@ -1293,6 +1393,7 @@ def vehicle_asif_phase(parts, dev):
             f"shared kernel launched {counts['admm_shared']} times in {steps} steps")
     require(counts["admm_lane"] == steps,
             f"lane kernel launched {counts['admm_lane']} times in {steps} steps")
+    require(sweeps == 0, f"{sweeps} Ruiz sweeps ran in torch on the lane route")
     require(bool(torch.isfinite(xs).all()), "non-finite vehicle state")
     return counts, kept, (ASIF_DT * steps, xs, mws, aws)
 
@@ -1393,10 +1494,11 @@ def vehicle_kernel_phase(parts, kept, dev):
     from smooth_feedback_tpu_torch.controllers import asif_to_qp_fleet
     from smooth_feedback_tpu_torch.groups import Rn
     from smooth_feedback_tpu_torch.qp import (
-        admm_iterate_cuda, admm_iterate_cuda_lane, admm_iterate_cuda_shared,
-        admm_iterate_lane_reference, admm_iterate_reference, lane_kernel_args,
-        per_problem_kernel_args, shared_kernel_args, solve_qp_batch,
+        admm_iterate_cuda, admm_iterate_cuda_shared, admm_iterate_reference, admm_solve_cuda_lane,
+        admm_solve_lane_reference, lane_kernel_args, per_problem_kernel_args, shared_kernel_args,
+        solve_qp_batch,
     )
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
 
     X, f, h, mpc, _, asif, _ = parts
     t, xs, mws, aws, mk, ak = kept[-1]
@@ -1436,7 +1538,6 @@ def vehicle_kernel_phase(parts, kept, dev):
                                    dtype=torch.float32, device=dev)
     worst_p = fixed_iteration_check(admm_iterate_cuda, tuple(noisy), prm_k,
                                     "a seeded random start (std 0.1)")
-    start = noisy[12:15]
     rows = {}
     for name, args in (("cold", cold), ("warm", per_problem_kernel_args(aq, None, aws, prm_k))):
         err, k = compare_with_plain(f"ASIF per-problem {name}", admm_iterate_cuda, prm_k, args, aq)
@@ -1447,42 +1548,49 @@ def vehicle_kernel_phase(parts, kept, dev):
                         f"{rows[name][1]:.4f} ms per solve at B={ASIF_B}, n={an}, m={am} (means of "
                         f"back-to-back calls); bound {rows[name][2]:.4f} ms ({rows[name][3]})")
 
-    # admm_lane, the path's own route for the ASIF: fixed iterations from the
-    # seeded random start with adaptive rho off, then whole solves with it on
+    # admm_lane, the path's own route for the ASIF: fixed iterations from a
+    # seeded random warm start with adaptive rho off, then whole solves (the
+    # kernel scaling and factorizing each member) with it on
     prm_l = asif_qp_params("lane", True)
-    cold = lane_kernel_args(aq, None, None, prm_l)
-    noisy = list(cold)
-    noisy[16:19] = start  # x0, z0, y0: admm_problem's seeded random start
-    worst_l = fixed_iteration_check(admm_iterate_cuda_lane, tuple(noisy),
-                                    dataclasses.replace(prm_l, adaptive_rho=False),
-                                    "admm_lane, a seeded random start (std 0.1)",
-                                    plain=admm_iterate_lane_reference)
+    cold = lane_kernel_args(aq)
+    worst_l = lane_fixed_check(cold, prm_l, "admm_lane")
     lane_rows = {}
-    for name, args in (("cold", cold), ("warm", lane_kernel_args(aq, None, aws, prm_l))):
+    for name, args in (("cold", cold), ("warm", lane_kernel_args(aq, None, aws))):
         err, k = lane_compare(f"ASIF lane {name}", args, prm_l)
         worst_l = max(worst_l, err)
-        lane_rows[name] = (time_ms(lambda: admm_iterate_cuda_lane(prm_l, *args), 20),
-                           time_ms(lambda: admm_iterate_lane_reference(prm_l, *args), 3),
-                           *lane_bound(args, k, prm_l))
+        lane_rows[name] = (time_ms(lambda: admm_solve_cuda_lane(prm_l, *args), 20),
+                           time_ms(lambda: admm_solve_lane_reference(prm_l, *args), 3),
+                           *lane_bound(args, k, prm_l),
+                           time_single_ms(lambda: admm_solve_cuda_lane(prm_l, *args), 20))
         phase("kernel", f"ASIF lane {name}: kernel {lane_rows[name][0]:.4f} ms, plain "
                         f"{lane_rows[name][1]:.4f} ms per solve at B={ASIF_B}, n={an}, m={am}, "
-                        f"adaptive rho (means of back-to-back calls); bound "
-                        f"{lane_rows[name][2]:.6f} ms ({lane_rows[name][3]})")
+                        f"adaptive rho (means of back-to-back calls; median of single kernel "
+                        f"launches {lane_rows[name][4]:.4f} ms); bound {lane_rows[name][2]:.6f} ms "
+                        f"({lane_rows[name][3]})")
+        lane_clock_split(f"ASIF lane {name}", args, prm_l, k)
 
-    # the ASIF solve on each route, warm-started from the carry
+    # the ASIF solve on each route, warm-started from the carry; on the lane
+    # route one launch a solve and no Ruiz sweep in torch
     for route, p in (("lane kernel, adaptive rho", prm_l),
                      ("torch loop, adaptive rho", asif_qp_params("torch", True)),
                      ("kernel, static rho", prm_k)):
         ts, sol = [], None
+        reset_counts()
+        sweeps = qsolver.lane_ruiz_sweeps
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sol = solve_qp_batch(aq, p, aws)
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t0) * 1e3)
+        counts, sweeps = read_counts(), qsolver.lane_ruiz_sweeps - sweeps
         phase("kernel", f"ASIF solve ({route}): {float(np.median(ts)):.3f} ms (median of 5, "
                         f"solve_qp_batch), mean iters {float(sol.iters.float().mean()):.3f}, "
-                        f"Optimal {float((sol.status == 0).float().mean()) * 100:.3f}%")
+                        f"Optimal {float((sol.status == 0).float().mean()) * 100:.3f}%, launches "
+                        f"{counts} in 5 solves, torch Ruiz sweeps {sweeps}")
+        if p is prm_l:
+            require(counts == {"admm_shared": 0, "admm_problem": 0, "admm_lane": 5} and sweeps == 0,
+                    "a lane ASIF solve was not exactly one admm_lane launch with no torch sweep")
     return worst_s, shared_row, worst_p, rows["warm"], worst_l, lane_rows["warm"]
 
 
@@ -2815,7 +2923,7 @@ def lane_phase(dev):
     route's solves, the worst error and the shapes."""
     from smooth_feedback_tpu_torch.convert import qp_from_numpy
     from smooth_feedback_tpu_torch.qp import (
-        QPSolverParams, admm_iterate_cuda_lane, admm_iterate_lane_reference, lane_kernel_args,
+        QPSolverParams, admm_solve_cuda_lane, admm_solve_lane_reference, lane_kernel_args,
         solve_qp_batch,
     )
     from smooth_feedback_tpu_torch.qp import solver as qsolver
@@ -2827,23 +2935,29 @@ def lane_phase(dev):
     for (n, m), prm in cases:
         qp = qp_from_numpy(lane_family(n, m, LANE_B, LANE_DENSITY, SEED + n), dev, torch.float32)
         reset_counts()
+        sweeps = qsolver.lane_ruiz_sweeps
         sol = solve_qp_batch(qp, prm)
-        counts = read_counts()
+        counts, sweeps = read_counts(), qsolver.lane_ruiz_sweeps - sweeps
         launches += counts["admm_lane"]
-        require(counts == {"admm_shared": 0, "admm_problem": 0, "admm_lane": 1},
-                f"lane ({n}, {m}): launches {counts}")
-        args = lane_kernel_args(qp, None, None, prm)
+        require(counts == {"admm_shared": 0, "admm_problem": 0, "admm_lane": 1} and sweeps == 0,
+                f"lane ({n}, {m}): launches {counts}, torch Ruiz sweeps {sweeps}")
+        args = lane_kernel_args(qp)
         label = f"lane ({n}, {m})" + (" adaptive, compensated" if prm.adaptive_rho else "")
         err, k = lane_compare(label, args, prm)
         worst = max(worst, err)
-        ms = time_ms(lambda: admm_iterate_cuda_lane(prm, *args), 10)
-        plain_ms = time_ms(lambda: admm_iterate_lane_reference(prm, *args), 1)
+        ms = time_ms(lambda: admm_solve_cuda_lane(prm, *args), 10)
+        single = time_single_ms(lambda: admm_solve_cuda_lane(prm, *args), 10)
+        plain_ms = time_ms(lambda: admm_solve_lane_reference(prm, *args), 1)
         bound_ms, bound_by = lane_bound(args, k, prm)
         opt = float((sol.status == 0).float().mean())
         phase("lane", f"{label}, B={LANE_B}: solve_qp_batch Optimal {opt * 100:.2f}% (polished), "
-                      f"launches {counts}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (means of "
-                      f"back-to-back calls), mean iters {float(k[4].float().mean()):.2f}, bound "
+                      f"launches {counts}, torch Ruiz sweeps {sweeps}; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms (means of back-to-back calls; median of single kernel "
+                      f"launches {single:.4f} ms), mean iters "
+                      f"{float(k.iters.float().mean()):.2f}, max {int(k.iters.max())}, bound "
                       f"{bound_ms:.6f} ms ({bound_by})")
+        if prm.adaptive_rho:
+            lane_clock_split(label, args, prm, k)
         shapes.append(f"B={LANE_B} n={n} m={m}")
 
     n = LANE_FALLTHROUGH_N
@@ -2999,10 +3113,11 @@ def example_kernel(label, wrapper, args, qps, prm, worst, shape, family=None):
     # a plain solve to max_iter takes about a second: one timed call
     row = (time_ms(lambda: wrapper(prm, *one), 10),
            time_ms(lambda: admm_iterate_reference(prm, *one), 1 if stuck else 2),
-           *bound(one, k1, prm))
+           *bound(one, k1, prm), time_single_ms(lambda: wrapper(prm, *one), 10))
     phase("kernel", f"{label}: member 0's solve at B=1: kernel {row[0]:.4f} ms, plain {row[1]:.4f} "
-                    f"ms (means of back-to-back calls), {int(k1[4][0])} iterations; bound "
-                    f"{row[2]:.6f} ms ({row[3]})")
+                    f"ms (means of back-to-back calls; median of single kernel launches "
+                    f"{row[4]:.4f} ms), {int(k1[4][0])} iterations; bound {row[2]:.6f} ms "
+                    f"({row[3]})")
     return worst, row, shape
 
 
@@ -3057,33 +3172,29 @@ def example_problem_kernel(label, qps, prm, fixed=FIXED_ITERS, ws=None):
 
 def example_lane_kernel(label, qps, prm, dev):
     """admm_lane at an example's ASIF QP batch against its plain version:
-    FIXED_ITERS iterations from a seeded random start (an input already
-    safe makes the cold start exact) and the cold solve (lane_compare),
-    member 0's launch timed.  Returns the worst error, the row and the
-    shape."""
+    FIXED_ITERS iterations from a seeded random warm start (an input
+    already safe makes the cold start exact) and the cold solve
+    (lane_compare), member 0's launch timed (back to back, a B = 1 launch
+    runs at the host's pace; the row's last time is the median of single
+    launches).  Returns the worst error, the row and the shape."""
     from smooth_feedback_tpu_torch.qp import (
-        admm_iterate_cuda_lane, admm_iterate_lane_reference, lane_kernel_args,
+        admm_solve_cuda_lane, admm_solve_lane_reference, lane_kernel_args,
     )
 
     n, m, B_ = qps.A.shape[-1], qps.A.shape[-2], qps.A.shape[0]
     label = f"{label} ({n}, {m}) B={B_}"
-    cold = lane_kernel_args(qps, None, None, prm)
-    rng = np.random.default_rng(SEED)
-    noisy = list(cold)
-    for i in (16, 17, 18):  # x0, z0, y0
-        noisy[i] = torch.as_tensor(0.1 * rng.standard_normal(tuple(cold[i].shape)),
-                                   dtype=torch.float32, device=dev)
-    worst = fixed_iteration_check(admm_iterate_cuda_lane, tuple(noisy),
-                                  dataclasses.replace(prm, adaptive_rho=False),
-                                  f"{label}, a seeded random start (std 0.1)",
-                                  plain=admm_iterate_lane_reference)
+    cold = lane_kernel_args(qps)
+    worst = lane_fixed_check(cold, prm, label)
     err, k = lane_compare(f"{label}, cold", cold, prm)
     one = first_member(cold, B_)
-    k1 = admm_iterate_cuda_lane(prm, *one)
-    row = (time_ms(lambda: admm_iterate_cuda_lane(prm, *one), 20),
-           time_ms(lambda: admm_iterate_lane_reference(prm, *one), 3), *lane_bound(one, k1, prm))
-    phase("kernel", f"{label}: member 0's solve at B=1: kernel {row[0]:.4f} ms, plain {row[1]:.4f} "
-                    f"ms, {int(k1[4][0])} iterations; bound {row[2]:.6f} ms ({row[3]})")
+    k1 = admm_solve_cuda_lane(prm, *one)
+    row = (time_ms(lambda: admm_solve_cuda_lane(prm, *one), 20),
+           time_ms(lambda: admm_solve_lane_reference(prm, *one), 3), *lane_bound(one, k1, prm),
+           time_single_ms(lambda: admm_solve_cuda_lane(prm, *one), 20))
+    phase("kernel", f"{label}: member 0's solve at B=1: kernel {row[0]:.4f} ms, plain "
+                    f"{row[1]:.4f} ms (means of back-to-back calls; median of single kernel "
+                    f"launches {row[4]:.4f} ms), {int(k1.iters[0])} iterations; bound "
+                    f"{row[2]:.6f} ms ({row[3]})")
     return max(worst, err), row, (B_, n, m)
 
 
@@ -3165,14 +3276,17 @@ def example_asif_di(dev):
     from examples_torch import asif_doubleintegrator as ex
     from smooth_feedback_tpu_torch.controllers import asif_to_qp
     from smooth_feedback_tpu_torch.qp import QuadraticProgram
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
 
     name = "asif_doubleintegrator"
     steps, default = EX_STEPS[name]
     reset_counts()
+    sweeps = qsolver.lane_ruiz_sweeps
     t0 = time.perf_counter()
     out = ex.run(steps, device=dev)
     torch.cuda.synchronize()
     secs, counts = time.perf_counter() - t0, read_counts()
+    require(qsolver.lane_ruiz_sweeps == sweeps, f"{name}: Ruiz sweeps ran in torch")
     opt = float((out["statuses"] == 0).float().mean())
     pmin = float(out["xs"][:, 0].min())
     example_line(name, secs, f"{steps} of {default} steps", f"Optimal {opt * 100:.3f}%, min "
@@ -3199,14 +3313,17 @@ def example_vehicle(dev):
     from examples_torch import mpc_asif_vehicle as ex
     from smooth_feedback_tpu_torch.controllers import asif_to_qp
     from smooth_feedback_tpu_torch.qp import QuadraticProgram
+    from smooth_feedback_tpu_torch.qp import solver as qsolver
 
     name = "mpc_asif_vehicle"
     steps, default = EX_STEPS[name]
     reset_counts()
+    sweeps = qsolver.lane_ruiz_sweeps
     t0 = time.perf_counter()
     out = ex.run(steps, device=dev)
     torch.cuda.synchronize()
     secs, counts = time.perf_counter() - t0, read_counts()
+    require(qsolver.lane_ruiz_sweeps == sweeps, f"{name}: Ruiz sweeps ran in torch")
     st = lambda k: {s: int((out[k] == s).sum()) for s in set(out[k].tolist())}
     hmin = float(out["hs"].min())
     example_line(name, secs, f"{steps} of {default} steps", f"MPC statuses {st('mpc_statuses')}, "
@@ -3600,18 +3717,23 @@ def main():
     for name, found in xfound.items():
         shapes[name] += [f"B={b} n={n} m={m} (examples/{ex})" for ex, _, _, (b, n, m) in found]
     kernels = []
-    for name, (max_err, (ms, plain_ms, bound_ms, bound_by)) in rows.items():
+    for name, (max_err, (ms, plain_ms, bound_ms, bound_by, single_ms)) in rows.items():
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            # ms is the mean of back-to-back calls, which reads the host's
+            # pace where a launch runs faster than the host enqueues it;
+            # single_ms is the median of single launches, the device's time
+            "single_ms": single_ms,
             # no single PyTorch call runs a whole ADMM solve
             "library_ms": None,
             "launches_by_path": by_path[name], "shapes": shapes[name],
             # member 0's solve at B = 1 at each example's shape
             "example_rows": [{"path": f"examples/{ex}", "B": b, "n": n, "m": m, "ms": r[0],
                               "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
+                              "single_ms": r[4],
                               "max_abs_err": e} for ex, e, r, (b, n, m) in xfound[name]],
         })
     print(json.dumps({"kernels": kernels}))

@@ -72,7 +72,8 @@ def _declare(lib):
     lib.admm_shared_plan.restype = ctypes.c_int
     lib.admm_problem_route.argtypes = [i, i, i, ip]
     lib.admm_problem_route.restype = ctypes.c_int
-    lib.admm_lane_launch.argtypes = [p] * 28 + [i] * 4 + [f] * 7 + [i] * 5 + [p]
+    ll = ctypes.c_longlong
+    lib.admm_lane_launch.argtypes = [p] * 32 + [ll] * 7 + [i] * 5 + [f] * 9 + [i] * 6 + [p]
     lib.admm_lane_launch.restype = ctypes.c_int
     lib.admm_lane_plan.argtypes = [i, i, i, ip]
     lib.admm_lane_plan.restype = ctypes.c_int

@@ -1,11 +1,12 @@
 """Batched dense QP solving (PyTorch port)."""
 
 from .cuda_kernel import (
+    LaneSolution,
     admm_iterate_cuda,
-    admm_iterate_cuda_lane,
     admm_iterate_cuda_shared,
-    admm_iterate_lane_reference,
     admm_iterate_reference,
+    admm_solve_cuda_lane,
+    admm_solve_lane_reference,
 )
 from .solver import (
     QPFactors,
@@ -46,6 +47,7 @@ __all__ = [
     "admm_iterate_cuda",
     "admm_iterate_cuda_shared",
     "admm_iterate_reference",
-    "admm_iterate_cuda_lane",
-    "admm_iterate_lane_reference",
+    "admm_solve_cuda_lane",
+    "admm_solve_lane_reference",
+    "LaneSolution",
 ]

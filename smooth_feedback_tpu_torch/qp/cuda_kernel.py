@@ -25,28 +25,34 @@ Two kernels, one per TPU kernel of ``smooth_feedback_tpu/qp/pallas_kernel.py``:
 A third kernel has no Pallas counterpart:
 
 - ``csrc/admm_lane.cu`` runs the JAX package's lane backend
-  (``smooth_feedback_tpu/qp/solver.py::_solve_qp_batch_lane``, an XLA
-  ``lax.while_loop`` over batch-trailing stacks) as one launch: the whole
-  loop of a fleet of tiny per-problem QPs with its stopping checks (plain or
-  compensated), certificates, ``kkt_refine_iters`` and adaptive rho, the
-  reduced KKT matrix refactorized inside the kernel.  One warp per problem,
-  its matrices and vectors in shared memory (:func:`lane_plan`).
+  (``smooth_feedback_tpu/qp/solver.py::_solve_qp_batch_lane``, one compiled
+  XLA program over batch-trailing stacks) as one launch: the whole solve of
+  a fleet of tiny per-problem QPs, from the unscaled problem to the unscaled
+  solution (Ruiz scaling, per-row rho, factorization, the loop with its
+  stopping checks (plain or compensated), certificates, ``kkt_refine_iters``
+  and adaptive rho refactorizing in the kernel, the objective).  One warp
+  per problem, its matrices and vectors in shared memory
+  (:func:`lane_plan`); up to n = 8 every lane works on every product.
 
 :func:`admm_iterate_cuda_shared`, :func:`admm_iterate_cuda` and
-:func:`admm_iterate_cuda_lane` launch their kernel on CUDA tensors and run
+:func:`admm_solve_cuda_lane` launch their kernel on CUDA tensors and run
 the plain version (:func:`admm_iterate_reference`,
-:func:`admm_iterate_lane_reference`) on CPU tensors; nothing else chooses
+:func:`admm_solve_lane_reference`) on CPU tensors; nothing else chooses
 the plain version.  Each has a ``launches`` attribute that counts kernel
 launches.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Optional
+
 import torch
 
 from .solver import (
-    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, _lane_chol_inverse,
-    _lane_loop, _mtv, _mv, _norm_inf,
+    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, QPFactors,
+    _inner_contiguous, _lane_chol_inverse, _lane_loop, _lane_scaling, _mtv, _mv, _norm_inf,
+    _scaled_inputs,
 )
 from .types import QPSolverParams
 
@@ -60,6 +66,7 @@ PROBLEM_WARPS = 16  # per-problem kernel: warps per block, one block per problem
 PROBLEM_STATIC_SMEM = 4 * 10 * 16  # its block-reduction scratch
 LANE_MAX_WARPS = 8  # lane kernel: problems (warps) per block (__launch_bounds__(256))
 LANE_VEC_N, LANE_VEC_M = 9, 14  # lane kernel: n- and m-vectors a problem keeps
+LANE_SMALL_MAX = 8  # lane kernel: the widest n on its register path
 
 
 def admm_iterate_reference(
@@ -171,37 +178,6 @@ def admm_iterate_reference(
     return x, z, y, status, iters, pres, dres
 
 
-def admm_iterate_lane_reference(
-    prm: QPSolverParams, P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us,
-    x0, z0, y0, status0, member_refactor=False,
-):
-    """Plain torch version of the lane kernel (any dtype): the lane
-    backend's loop (``qp.solver._lane_loop``, batch-trailing) on
-    batch-leading arguments.  ``P``/``Ps``/``Mred``/``Minv`` (B, n, n),
-    ``A``/``As`` (B, m, n), ``q``/``sx``/``qs``/``x0`` (B, n), ``l``/``u``/
-    ``sy``/``rho``/``ls``/``us``/``z0``/``y0`` (B, m), ``c`` (B,).  With
-    ``Mred`` and ``Minv`` None it factorizes first (``_lane_chol_inverse``);
-    a member whose factor fails and that would run starts Unknown.  Rho
-    adapts as in the JAX package (the whole fleet refactorized when a member
-    adapts) or, with ``member_refactor``, as in the kernel.  Returns ``(x,
-    z, y, status, iters, pres, dres, refactors)`` in scaled variables."""
-    tr = lambda a: a.permute(1, 2, 0) if a.dim() == 3 else a.T
-    Pt, At, Pst, Ast = (tr(a) for a in (P, A, Ps, As))
-    rhot = tr(rho)
-    status0 = status0.to(torch.int32)
-    if Minv is None:
-        Mredt, Minvt, fail = _lane_chol_inverse(Pst, Ast, rhot, prm.sigma)
-        status0 = torch.where(fail & (status0 == _RUNNING), _UNKNOWN, status0).to(torch.int32)
-    else:
-        Mredt, Minvt = tr(Mred), tr(Minv)
-    out = _lane_loop(
-        prm, Pt, tr(q), At, tr(l), tr(u), c, tr(sx), tr(sy), rhot, Pst, Ast, Mredt, Minvt,
-        tr(qs), tr(ls), tr(us), tr(x0), tr(z0), tr(y0), status0, member_refactor,
-    )
-    x, z, y = (v.T for v in out[:3])
-    return (x, z, y, *out[3:])
-
-
 def _round4(v: int) -> int:
     return (v + 3) & ~3
 
@@ -271,33 +247,42 @@ def problem_smem_bytes(n: int, m: int) -> int:
     return problem_route(n, m)[1]
 
 
-def lane_problem_bytes(n: int, m: int) -> int:
+def lane_problem_bytes(n: int, m: int, resident: bool = False) -> int:
     """Shared memory one problem (one warp) of the lane kernel keeps
     (mirrors ``problem_floats`` in csrc/admm_lane.cu): ``As``, ``Minv``,
     ``Mred`` and two matrices of refactorization scratch at the odd row
-    stride ``n | 1``, and its vectors."""
+    stride ``n | 1``, with ``resident`` also the unscaled ``P`` and ``A``
+    there, and its vectors."""
     ld = n | 1
-    return 4 * _round4(ld * (m + 4 * n) + LANE_VEC_N * n + LANE_VEC_M * m)
+    extra = ld * (n + m) if resident else 0
+    return 4 * _round4(ld * (m + 4 * n) + extra + LANE_VEC_N * n + LANE_VEC_M * m)
 
 
 def lane_fits(n: int, m: int) -> bool:
     """Whether the lane kernel holds a problem of ``(n, m)``: one problem's
-    matrices and vectors within one block's ``SMEM_LIMIT``.  ``solve_qp_batch``
-    runs a lane batch that does not fit on the plain lane loop."""
+    matrices and vectors (without the unscaled ``P`` and ``A``, which it
+    then reads from device memory) within one block's ``SMEM_LIMIT``.
+    ``solve_qp_batch`` runs a lane batch that does not fit on the plain
+    whole solve."""
     return n >= 1 and m >= 1 and lane_problem_bytes(n, m) <= SMEM_LIMIT
 
 
 def lane_plan(B: int, n: int, m: int):
     """How the lane kernel lays out ``B`` problems (mirrors ``plan`` in
     csrc/admm_lane.cu): ``(problems a block, dynamic shared memory a block
-    in bytes)``.  A warp a problem; as many problems a block as fit, up to
-    ``LANE_MAX_WARPS``, but no more than it takes to give every SM a block.
+    in bytes, resident, small)``.  A warp a problem; the unscaled ``P`` and
+    ``A`` in shared memory (``resident``) wherever one problem with them
+    fits a block; as many problems a block as fit, up to
+    ``LANE_MAX_WARPS``, but no more than it takes to give every SM a block;
+    ``small`` n where the register path (one instantiation a width, up to
+    ``LANE_SMALL_MAX``) takes the problem, else 0 (a lane per output).
     Raises for a shape :func:`lane_fits` refuses."""
     if not lane_fits(n, m):
         raise ValueError(f"the lane kernel cannot hold n={n}, m={m}")
-    per = lane_problem_bytes(n, m)
+    resident = lane_problem_bytes(n, m, True) <= SMEM_LIMIT
+    per = lane_problem_bytes(n, m, resident)
     ppb = min(LANE_MAX_WARPS, SMEM_LIMIT // per, max(1, -(-B // SMS)))
-    return ppb, ppb * per
+    return ppb, ppb * per, int(resident), n if n <= LANE_SMALL_MAX else 0
 
 
 def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0,
@@ -426,38 +411,109 @@ def admm_iterate_cuda(
 admm_iterate_cuda.launches = 0
 
 
-_LANE_NAMES = ("P", "q", "A", "l", "u", "c", "sx", "sy", "rho", "Ps", "As", "Mred", "Minv",
-               "qs", "ls", "us", "x0", "z0", "y0")
+class LaneSolution(NamedTuple):
+    """One lane solve, batch-leading: the unscaled solution (``primal``
+    (B, n), ``dual`` (B, m), ``objective``), ``status``, ``iters``, the last
+    check's ``pres`` and ``dres``, the refactorizations adaptive rho asked
+    for and the Ruiz sweeps each member ran, then the scaled iterates ``x``,
+    ``z``, ``y`` and the scalings ``c``, ``sx``, ``sy`` (None where the
+    kernel was not asked for them)."""
+
+    primal: torch.Tensor
+    dual: torch.Tensor
+    status: torch.Tensor
+    iters: torch.Tensor
+    objective: torch.Tensor
+    pres: torch.Tensor
+    dres: torch.Tensor
+    refactors: torch.Tensor
+    sweeps: torch.Tensor
+    x: Optional[torch.Tensor]
+    z: Optional[torch.Tensor]
+    y: Optional[torch.Tensor]
+    c: Optional[torch.Tensor]
+    sx: Optional[torch.Tensor]
+    sy: Optional[torch.Tensor]
 
 
-def _check_lane_args(prm, args, status0):
-    B, n = args[1].shape if args[1].dim() == 2 else (-1, -1)
-    m = args[3].shape[1] if args[3].dim() == 2 else -1
-    N, M = (n, n), (m, n)
-    shapes = dict(zip(_LANE_NAMES, (
-        N, (n,), M, (m,), (m,), (), (n,), (m,), (m,), N, M, N, N,
-        (n,), (m,), (m,), (n,), (m,), (m,),
-    )))
-    dev = args[1].device
-    for name, t in zip(_LANE_NAMES, args):
-        if t is None and name in ("Mred", "Minv"):
-            continue
+class _Warm(NamedTuple):
+    primal: torch.Tensor
+    dual: torch.Tensor
+
+
+def admm_solve_lane_reference(
+    prm: QPSolverParams, P, q, A, l, u, xw=None, yw=None, factors=None, member_refactor=False,
+) -> LaneSolution:
+    """Plain torch version of the lane kernel (any dtype): the lane
+    backend's whole solve from the batch-trailing pieces of ``qp.solver``,
+    so that its float64 rounding follows the JAX package's.  ``P`` (B, n,
+    n), ``q`` (B, n), ``A`` (B, m, n), ``l``/``u`` (B, m), the unscaled warm
+    start ``xw`` (B, n), ``yw`` (B, m) or None, per-problem ``factors`` or
+    None (then ``_lane_scaling`` and ``_lane_chol_inverse``: a member whose
+    factor fails and that would run starts Unknown).  Rho adapts as in the
+    JAX package (the whole fleet refactorized when a member adapts) or,
+    with ``member_refactor``, as in the kernel.  Returns every field of
+    :class:`LaneSolution`."""
+    B, m, n = A.shape
+    P, q, l, u = P.expand(B, n, n), q.expand(B, n), l.expand(B, m), u.expand(B, m)
+    Pt, At = P.permute(1, 2, 0), A.permute(1, 2, 0)
+    lt, ut, qt = l.T, u.T, q.T
+    if factors is None:
+        c, sxt, syt, rhot, Pst, Ast, sweeps = _lane_scaling(Pt, qt, At, lt, ut, prm)
+        Mredt, Minvt, fail = _lane_chol_inverse(Pst, Ast, rhot, prm.sigma)
+        sx, sy, fact_ok = sxt.T, syt.T, ~fail
+    else:
+        c, sx, sy, rho, Ps, As, Mred, Minv, fact_ok = factors
+        rhot, Pst, Ast = rho.T, Ps.permute(1, 2, 0), As.permute(1, 2, 0)
+        Mredt, Minvt = Mred.permute(1, 2, 0), Minv.permute(1, 2, 0)
+        sweeps = torch.zeros((B,), dtype=torch.int32, device=A.device)
+    warm = None if xw is None else _Warm(xw, yw)
+    scal = QPFactors(c, sx, sy, None, None, None, None, None, fact_ok)
+    _, _, _, qs, ls, us, x0, z0, y0, status0 = _scaled_inputs(A, q, l, u, scal, warm, False)
+    x, z, y, status, iters, pres, dres, refactors = _lane_loop(
+        prm, Pt, qt, At, lt, ut, c, sx.T, sy.T, rhot, Pst, Ast, Mredt, Minvt,
+        qs.T, ls.T, us.T, x0.T, z0.T, y0.T, status0, member_refactor,
+    )
+    x, z, y = x.T, z.T, y.T
+    primal = sx * x
+    dual = sy * y / c[:, None]
+    objective = (primal * (0.5 * _mv(P, primal) + q)).sum(dim=1)
+    return LaneSolution(primal, dual, status, iters, objective, pres, dres, refactors, sweeps,
+                        x, z, y, c, sx, sy)
+
+
+def _lane_check_args(prm, P, q, A, l, u, xw, yw, factors):
+    """Check the lane kernel's operands (see ``qp.solver._lane_args``):
+    float32 on one device, batch-leading with contiguous inner axes, the
+    factors contiguous; returns ``(B, n, m)``."""
+    if not isinstance(A, torch.Tensor) or A.dim() != 3:
+        raise ValueError("A must be a (B, m, n) tensor")
+    B, m, n = A.shape
+    dev = A.device
+    named = {"P": (P, (n, n)), "q": (q, (n,)), "A": (A, (m, n)), "l": (l, (m,)), "u": (u, (m,))}
+    if (xw is None) != (yw is None):
+        raise ValueError("the warm start's primal and dual are given together or not at all")
+    if xw is not None:
+        named.update(xw=(xw, (n,)), yw=(yw, (m,)))
+    for name, (t, inner) in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
-        if tuple(t.shape) != (B,) + shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B,) + shapes[name]}")
+        if tuple(t.shape) != (B,) + inner:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B,) + inner}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if (args[11] is None) != (args[12] is None):
-        raise ValueError("Mred and Minv are given together or not at all")
-    if tuple(status0.shape) != (B,) or status0.dtype != torch.int32:
-        raise ValueError("status0 must be int32 of shape (B,)")
-    if status0.device != dev or not status0.is_contiguous():
-        raise ValueError("status0 must be contiguous and on the problems' device")
+        if not _inner_contiguous(t) or t.stride(0) < 0:
+            raise ValueError(f"{name} must have contiguous inner axes")
+    if factors is not None:
+        inner = ((), (n,), (m,), (m,), (n, n), (m, n), (n, n), (n, n), ())
+        for name, t, shape in zip(QPFactors._fields, factors, inner):
+            want = torch.bool if name == "fact_ok" else torch.float32
+            if not isinstance(t, torch.Tensor) or tuple(t.shape) != (B,) + shape:
+                raise ValueError(f"factors.{name} must be a tensor of shape {(B,) + shape}")
+            if t.dtype != want or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"factors.{name} must be contiguous {want} on {dev}")
     if prm.stop_check_iter < 1:
         raise ValueError("stop_check_iter must be >= 1")
     if not lane_fits(n, m):
@@ -468,47 +524,84 @@ def _check_lane_args(prm, args, status0):
     return B, n, m
 
 
-def admm_iterate_cuda_lane(
-    prm: QPSolverParams, P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us,
-    x0, z0, y0, status0,
-):
-    """The lane backend's whole loop on float32 tensors, batch-leading.
+def _batch_stride(t):
+    return 0 if t is None or t.shape[0] == 1 else t.stride(0)
 
-    CUDA tensors launch ``csrc/admm_lane.cu`` (or raise); CPU tensors run
-    :func:`admm_iterate_lane_reference`.  Shapes as there; ``Mred`` and
-    ``Minv`` None make the kernel factorize each member first.  Returns
-    ``(x, z, y, status, iters, pres, dres, refactors)`` in scaled
-    variables."""
-    from .. import _build
 
-    args = (P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us, x0, z0, y0)
-    B, n, m = _check_lane_args(prm, args, status0)
-    if _device_type(qs) == "cpu":
-        return admm_iterate_lane_reference(prm, *args, status0)
-    dev = qs.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    outs = (
-        torch.empty((B, n), **f32), torch.empty((B, m), **f32), torch.empty((B, m), **f32),
-        torch.empty((B,), **i32), torch.empty((B,), **i32),
-        torch.empty((B,), **f32), torch.empty((B,), **f32), torch.empty((B,), **i32),
-    )
-    ppb, _ = lane_plan(B, n, m)
+def _lane_call(lib, prm, P, q, A, l, u, xw, yw, factors, scaled, clocks, clock_member, stream):
+    """One ``admm_lane_launch`` of ``lib`` on checked operands: one output
+    allocation (the fields are views of it), the launch, its CUDA code
+    (raises where it is not 0)."""
+    B, m, n = A.shape
+    ppb = lane_plan(B, n, m)[0]
+    # (shape a member, int32) of primal, dual, objective, pres, dres,
+    # status, iters, refactors, sweeps, then x, z, y, c, sx, sy
+    layout = [((n,), False), ((m,), False), ((), False), ((), False), ((), False),
+              ((), True), ((), True), ((), True), ((), True)]
+    if scaled:
+        layout += [((n,), False), ((m,), False), ((m,), False), ((), False), ((n,), False),
+                   ((m,), False)]
+    buf = torch.empty(B * sum(math.prod(s) for s, _ in layout), dtype=torch.float32,
+                      device=A.device)
+    fields, off = [], 0
+    for shape, is_int in layout:
+        size = B * math.prod(shape)
+        f = buf[off:off + size]
+        fields.append((f.view(torch.int32) if is_int else f).view((B,) + shape))
+        off += size
+    primal, dual, objective, pres, dres, status, iters, refactors, sweeps = fields[:9]
+    scaled_out = fields[9:] if scaled else [None] * 6
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.load().admm_lane_launch(
-            *(ptr(t) for t in (*args, status0, *outs)),
-            B, n, m, ppb,
-            prm.alpha, prm.sigma, prm.eps_abs, prm.eps_rel, prm.eps_primal_inf,
-            prm.eps_dual_inf, prm.adaptive_rho_tol,
-            prm.max_iter, prm.stop_check_iter, max(0, prm.kkt_refine_iters),
-            int(prm.adaptive_rho), int(prm.compensated_check), stream,
-        )
+    fac = [None] * 9 if factors is None else list(factors)
+    err = lib.admm_lane_launch(
+        *(ptr(t) for t in (P, q, A, l, u, xw, yw, *fac)),
+        *(ptr(t) for t in (primal, dual, objective, pres, dres, status, iters, refactors, sweeps,
+                           *scaled_out, clocks)),
+        *(_batch_stride(t) for t in (P, q, A, l, u, xw, yw)),
+        clock_member, B, n, m, ppb,
+        prm.alpha, prm.sigma, prm.rho, prm.rho_eq_scale * prm.rho, prm.eps_abs, prm.eps_rel,
+        prm.eps_primal_inf, prm.eps_dual_inf, prm.adaptive_rho_tol,
+        prm.max_iter, prm.stop_check_iter, max(0, prm.kkt_refine_iters),
+        int(prm.adaptive_rho), int(prm.compensated_check), int(prm.scaling), stream,
+    )
     if err != 0:
         raise RuntimeError(f"admm_lane_launch failed: CUDA error {err}")
-    admm_iterate_cuda_lane.launches += 1
-    return outs
+    x, z, y, c, sx, sy = scaled_out
+    return LaneSolution(primal, dual, status, iters, objective, pres, dres, refactors, sweeps,
+                        x, z, y, c, sx, sy)
 
 
-admm_iterate_cuda_lane.launches = 0
+def admm_solve_cuda_lane(
+    prm: QPSolverParams, P, q, A, l, u, xw=None, yw=None, factors=None, scaled=False,
+    clocks=None, clock_member=0,
+) -> LaneSolution:
+    """The lane backend's whole solve on float32 tensors, batch-leading (the
+    operands ``qp.lane_kernel_args`` prepares).
+
+    CUDA tensors launch ``csrc/admm_lane.cu`` once (or raise): scaling,
+    per-row rho, the scaled warm start, factorization, the loop with
+    adaptive rho and the unscaled solution in the kernel, the outputs views
+    of one allocation; ``scaled`` also returns the scaled iterates and the
+    scalings (polish needs them).  ``clocks``, an int64 CUDA tensor of 8,
+    takes member ``clock_member``'s clock64 split (prologue,
+    factorization, iterations without and with a check, refactorizations,
+    epilogue cycles, then the two iteration counts).  CPU tensors run
+    :func:`admm_solve_lane_reference` with the kernel's member
+    refactorization.  Returns a :class:`LaneSolution`."""
+    B, n, m = _lane_check_args(prm, P, q, A, l, u, xw, yw, factors)
+    if _device_type(A) == "cpu":
+        return admm_solve_lane_reference(prm, P, q, A, l, u, xw, yw, factors, member_refactor=True)
+    if clocks is not None and (clocks.dtype != torch.int64 or clocks.numel() < 8
+                               or clocks.device != A.device):
+        raise ValueError("clocks must be an int64 tensor of 8 on the problems' device")
+    from .. import _build
+
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        out = _lane_call(_build.load(), prm, P, q, A, l, u, xw, yw, factors, scaled, clocks,
+                         clock_member, stream)
+    admm_solve_cuda_lane.launches += 1
+    return out
+
+
+admm_solve_cuda_lane.launches = 0

@@ -17,11 +17,12 @@ device, and counts one ``shared_fallthroughs``), the per-problem kernel
 against per-problem factors or none (then every member is scaled and
 factorized here first, in torch).  ``"lane"`` is the JAX package's
 batch-trailing backend for fleets of tiny per-problem QPs: on CPU tensors
-its plain loop (below, in the JAX package's ``(m, n, B)`` layout), on CUDA
-tensors the whole loop as one launch of ``csrc/admm_lane.cu`` (a shape that
-kernel cannot hold runs the plain loop on the card and counts one
-``lane_fallthroughs``); shared factors on ``"lane"`` take the torch shared
-loop, as the JAX package's take its XLA shared path.
+its plain whole solve (built from the pieces below, in the JAX package's
+``(m, n, B)`` layout), on CUDA tensors the whole solve (scaling,
+factorization, loop, unscaling) as one launch of ``csrc/admm_lane.cu`` (a
+shape that kernel cannot hold runs the plain whole solve on the card and
+counts one ``lane_fallthroughs``); shared factors on ``"lane"`` take the
+torch shared loop, as the JAX package's take its XLA shared path.
 
 Options, as in the JAX package: ``verbose`` (a host line at each stopping
 check of the torch and lane loops; the kernels run their loop on the card
@@ -566,15 +567,20 @@ def per_problem_kernel_args(
 # The JAX package's backend for fleets of tiny per-problem QPs (the ASIF
 # shape: n = nu + 1 variables, m ~ K rows) stores every matrix batch-TRAILING
 # (A as (m, n, B)) and runs scaling, factorization, the ADMM iteration and the
-# stopping checks in that layout.  The plain loop below keeps the layout and
-# the JAX package's order of operations, so its float64 rounding follows the
-# JAX package's; on CUDA tensors the loop runs as one launch of
-# csrc/admm_lane.cu instead (qp/cuda_kernel.py).
+# stopping checks in that layout.  The plain pieces below keep the layout and
+# the JAX package's order of operations, so the plain whole solve built from
+# them (qp/cuda_kernel.py's admm_solve_lane_reference) rounds in float64 as
+# the JAX package does; on CUDA tensors the whole solve (scaling,
+# factorization, loop, unscaling) runs as one launch of csrc/admm_lane.cu
+# instead.
 
 
 def _ruiz_lane(Pt, qt, At, max_ruiz_iter: int = 10):
     """Batch-trailing modified-Ruiz equilibration of ``(n, n, B)``, ``(n,
-    B)``, ``(m, n, B)`` stacks; each member stops sweeping on its own."""
+    B)``, ``(m, n, B)`` stacks; each member stops sweeping on its own.
+    Returns ``(c, sx, sy, sweeps)``, ``sweeps`` (B,) the sweeps each member
+    ran; every sweep of the loop counts one ``lane_ruiz_sweeps``."""
+    global lane_ruiz_sweeps
     dt, dev = Pt.dtype, Pt.device
     n, _, B = Pt.shape
     m = At.shape[0]
@@ -587,8 +593,10 @@ def _ruiz_lane(Pt, qt, At, max_ruiz_iter: int = 10):
     sx = torch.ones((n, B), dtype=dt, device=dev)
     sy = torch.ones((m, B), dtype=dt, device=dev)
     err = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    sweeps = torch.zeros((B,), dtype=torch.int32, device=dev)
     it = 0
     while it == 0 or (it <= max_ruiz_iter and bool((err > 0.1).any())):
+        lane_ruiz_sweeps += 1
         active = torch.ones_like(err, dtype=torch.bool) if it == 0 else err > 0.1
         Pn = (c[None, None, :] * sx[:, None, :] * sx[None, :, :] * Pt).abs()
         An = (sy[:, None, :] * At * sx[None, :, :]).abs()
@@ -604,24 +612,26 @@ def _ruiz_lane(Pt, qt, At, max_ruiz_iter: int = 10):
         sx = torch.where(active[None, :], sx_new, sx)
         sy = torch.where(active[None, :], sy_new, sy)
         err = torch.where(active, err_new, err)
+        sweeps = sweeps + active.to(torch.int32)
         it += 1
-    return c, sx, sy
+    return c, sx, sy, sweeps
 
 
 def _lane_scaling(Pt, qt, At, lt, ut, prm):
     """Scalings, per-row rho and the scaled matrices of a batch-trailing
-    fleet: ``(c, sx, sy, rho, Pst, Ast)``, unit scalings without
-    ``prm.scaling``."""
+    fleet: ``(c, sx, sy, rho, Pst, Ast, sweeps)``, unit scalings and no
+    sweeps without ``prm.scaling``."""
     dt, dev = Pt.dtype, Pt.device
     n, _, B = Pt.shape
     m = At.shape[0]
     inf = float("inf")
     if prm.scaling:
-        c, sx, sy = _ruiz_lane(Pt, qt, At)
+        c, sx, sy, sweeps = _ruiz_lane(Pt, qt, At)
     else:
         c = torch.ones((B,), dtype=dt, device=dev)
         sx = torch.ones((n, B), dtype=dt, device=dev)
         sy = torch.ones((m, B), dtype=dt, device=dev)
+        sweeps = torch.zeros((B,), dtype=torch.int32, device=dev)
     # NaN (inf - inf) compares False => inequality row
     unbounded = (lt == -inf) & (ut == inf)
     eq = sy * (lt - ut).abs() < 1e-5
@@ -636,7 +646,7 @@ def _lane_scaling(Pt, qt, At, lt, ut, prm):
     )  # (m, B)
     Pst = c[None, None, :] * sx[:, None, :] * sx[None, :, :] * Pt
     Ast = sy[:, None, :] * At * sx[None, :, :]
-    return c, sx, sy, rho, Pst, Ast
+    return c, sx, sy, rho, Pst, Ast, sweeps
 
 
 # Up to this n the lane factorization is the unrolled chol_lane /
@@ -845,80 +855,97 @@ def _lane_loop(prm, Pt, qt, At, lt, ut, c, sx, sy, rho, Pst, Ast, Mredt, Minvt, 
     return x, z, y, status, iters, pres, dres, refactors
 
 
-def _lane_inputs(prm, P, q, A, l, u, warmstart, factors):
-    """The lane loop's inputs, batch-leading: ``(P, q, A, l, u, c, sx, sy,
-    rho, Ps, As, Mred, Minv, qs, ls, us, x0, z0, y0, status0)``.  Without
-    ``factors`` the scalings and scaled matrices come from the batch-trailing
-    :func:`_lane_scaling` (as views) and ``Mred``, ``Minv`` are None: the
-    loop factorizes first, and a member whose factor fails starts Unknown."""
-    if factors is None:
-        c, sx, sy, rho, Pst, Ast = _lane_scaling(
-            P.permute(1, 2, 0), q.T, A.permute(1, 2, 0), l.T, u.T, prm
-        )
-        ok = torch.ones_like(c, dtype=torch.bool)
-        factors = QPFactors(c, sx.T, sy.T, rho.T, Pst.permute(2, 0, 1), Ast.permute(2, 0, 1),
-                            None, None, ok)
-    _, _, _, qs, ls, us, x0, z0, y0, status0 = _scaled_inputs(
-        A, q, l, u, factors, warmstart, False
-    )
-    c, sx, sy, rho, Ps, As, Mred, Minv, _ = factors
-    return P, q, A, l, u, c, sx, sy, rho, Ps, As, Mred, Minv, qs, ls, us, x0, z0, y0, status0
+def _inner_contiguous(t):
+    """Whether every axis of ``t`` after the first is laid out as in a
+    contiguous tensor (the first, the batch, may have any stride)."""
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _lane_operand(t):
+    """``t`` as float32 with contiguous inner axes; no copy where it is one."""
+    t = t.to(torch.float32)
+    return t if _inner_contiguous(t) else t.contiguous()
+
+
+def _lane_args(P, q, A, l, u, warmstart, factors):
+    """The lane kernel's operands after ``prm`` from batch-leading ``(P, q,
+    A, l, u)`` (expanded views keep their batch stride 0): ``(P, q, A, l, u,
+    xw, yw, factors)``, the unscaled warm start's primal and dual (None
+    without one) and the per-problem factors (None without them), float32
+    with contiguous inner axes (factors contiguous, ``fact_ok`` bool)."""
+    B, m, n = A.shape
+    xw = yw = None
+    if warmstart is not None:
+        xw = _lane_operand(warmstart.primal.expand(B, n))
+        yw = _lane_operand(warmstart.dual.expand(B, m))
+    if factors is not None:
+        factors = QPFactors(*(f.to(torch.float32).contiguous() for f in factors[:8]),
+                            factors.fact_ok.contiguous())
+    return (*(_lane_operand(a) for a in (P, q, A, l, u)), xw, yw, factors)
 
 
 def lane_kernel_args(
     qp: QuadraticProgram,
     factors: Optional[QPFactors] = None,
     warmstart: Optional[QPSolution] = None,
-    prm: QPSolverParams = QPSolverParams(),
 ):
     """What :func:`solve_qp_batch` on ``backend="lane"`` hands
-    ``admm_iterate_cuda_lane`` after ``prm`` for a batch ``qp`` against
-    per-problem ``factors`` (``Mred`` and ``Minv`` given) or none (then the
-    scalings and per-row rho alone, and the kernel factorizes): contiguous
-    float32 (int32 statuses), ``None`` for factors not given.  The plain
-    version ``admm_iterate_lane_reference`` takes the same arguments."""
+    ``admm_solve_cuda_lane`` after ``prm`` for a batch ``qp`` against
+    per-problem ``factors`` (the kernel then skips scaling and
+    factorization) or none (the kernel scales and factorizes): the
+    unscaled problem, the unscaled warm start (None without one) and the
+    factors, float32 (see :func:`_lane_args`).  The plain version
+    ``admm_solve_lane_reference`` takes the same arguments."""
     P, q, A, l, u, shared = _batch_view(qp, factors)
     if shared:
         raise ValueError("lane_kernel_args needs per-problem factors (or none)")
-    with ieee_f32_matmul():
-        args = _lane_inputs(prm, P, q, A, l, u, warmstart, factors)
-    return _lane_f32(args)
-
-
-def _lane_f32(args):
-    f32 = lambda a: None if a is None else (
-        a.contiguous() if a.dtype == torch.int32 else a.to(torch.float32).contiguous()
-    )
-    return tuple(f32(a) for a in args)
+    return _lane_args(P, q, A, l, u, warmstart, factors)
 
 
 # lane solves on CUDA tensors that ran the plain lane loop on the card
 # because the lane kernel cannot hold their shape (nothing launched)
 lane_fallthroughs = 0
+# sweeps of the batch-trailing Ruiz loop run in torch (_ruiz_lane); the lane
+# kernel scales inside, so a lane solve on the card adds none
+lane_ruiz_sweeps = 0
 
 
 def _solve_qp_batch_lane(prm, P, q, A, l, u, warmstart, factors):
-    """The lane backend: the plain loop on CPU tensors, one launch of the
-    lane kernel on CUDA tensors (or, for a shape the kernel cannot hold,
-    decided before anything launches, the plain loop on the card: one
-    ``lane_fallthroughs``); finalize and polish batch-leading."""
+    """The lane backend: the plain whole solve on CPU tensors, one launch of
+    the lane kernel on CUDA tensors (or, for a shape the kernel cannot
+    hold, decided before anything launches, the plain whole solve on the
+    card: one ``lane_fallthroughs``).  With ``prm.polish`` the polish and
+    the solution's assembly run after it, batch-leading, from the scaled
+    iterates and scalings it returns."""
     global lane_fallthroughs
-    from .cuda_kernel import admm_iterate_cuda_lane, admm_iterate_lane_reference, lane_fits
+    from .cuda_kernel import admm_solve_cuda_lane, admm_solve_lane_reference, lane_fits
 
     dt = A.dtype
     B, m, n = A.shape
-    args = _lane_inputs(prm, P, q, A, l, u, warmstart, factors)
     if A.device.type == "cuda" and lane_fits(n, m):
-        out = admm_iterate_cuda_lane(prm, *_lane_f32(args))
+        out = admm_solve_cuda_lane(prm, *_lane_args(P, q, A, l, u, warmstart, factors),
+                                   scaled=prm.polish)
+        if dt != torch.float32:
+            out = type(out)(*(a if a is None or not a.is_floating_point() else a.to(dt)
+                              for a in out))
     else:
         if A.device.type == "cuda":
             lane_fallthroughs += 1
-        out = admm_iterate_lane_reference(prm, *args)
-    x, _, y, status, iters, pres, dres, _ = out
-    c, sx, sy = args[5:8]
-    return _finalize_solution(
-        prm, P, q, A, l, u, c, sx, sy, x.to(dt), y.to(dt), status, iters, pres.to(dt),
-        dres.to(dt),
+        ws = (None, None) if warmstart is None else (warmstart.primal, warmstart.dual)
+        out = admm_solve_lane_reference(prm, P, q, A, l, u, *ws, factors)
+    if prm.polish:
+        return _finalize_solution(
+            prm, P, q, A, l, u, out.c, out.sx, out.sy, out.x, out.y, out.status, out.iters,
+            out.pres, out.dres,
+        )
+    return QPSolution(
+        primal=out.primal, dual=out.dual, status=out.status, iters=out.iters,
+        objective=out.objective, primal_res=out.pres, dual_res=out.dres,
     )
 
 

@@ -86,11 +86,12 @@ def test_asif_transcription_matches_jax_f64():
             np.testing.assert_allclose(tfa[b].numpy(), a.numpy(), atol=1e-12, rtol=0, err_msg=name)
 
 
-def _di_filter(backend, port_backend="torch"):
+@functools.lru_cache(maxsize=None)
+def _jax_di_filter(backend):
     """tests/test_asif.py's double integrator with barrier h = position and
-    a backup law that brakes, in both packages (K = 5, T = 1): JAX's on
-    ``backend``, the port's on ``port_backend``."""
-    jstep = j_make_asif_step(
+    a backup law that brakes (K = 5, T = 1), JAX's filter on ``backend``,
+    built once a backend."""
+    return j_make_asif_step(
         JRn(2), JRn(1), lambda x, u: jnp.stack([x[1], u[0]]),
         lambda t, x: jnp.stack([x[0]]), lambda t, x: jnp.array([1.0]),
         params=JASIFilterParams(T=1.0, asif=JASIFtoQPParams(K=5), qp=JQPSolverParams(
@@ -98,7 +99,11 @@ def _di_filter(backend, port_backend="torch"):
             max_iter=20000,
         )),
     )
-    tstep = make_asif_step(
+
+
+def _port_di_filter(port_backend):
+    """The same filter in the port, on ``port_backend``."""
+    return make_asif_step(
         Rn(2), Rn(1), lambda x, u: torch.stack([x[1], u[0]]),
         lambda t, x: x[:1], lambda t, x: torch.ones(1, dtype=x.dtype),
         params=ASIFilterParams(T=1.0, asif=ASIFtoQPParams(K=5), qp=QPSolverParams(
@@ -107,7 +112,6 @@ def _di_filter(backend, port_backend="torch"):
         )),
         device="cpu",
     )
-    return jstep, tstep
 
 
 def test_asif_step_and_fleet_match_jax():
@@ -117,8 +121,8 @@ def test_asif_step_and_fleet_match_jax():
     on "lane" and on "xla".  Statuses equal and Optimal, iteration counts
     equal to the xla path's, filtered u within 1e-9 of both (f64; JAX's own
     lane/xla pair agrees to 1e-9 here); step is step.fleet at B = 1."""
-    (jl, jws0), _ = _di_filter("lane")
-    (jx, _), _ = _di_filter("xla")
+    jl, jws0 = _jax_di_filter("lane")
+    jx, _ = _jax_di_filter("xla")
     B = 8
     xs = np.stack([np.array([1.0 + 0.1 * i, -0.2]) for i in range(B)])
     xs[::2, 1] = -1.5  # half the fleet heading for the barrier
@@ -126,7 +130,7 @@ def test_asif_step_and_fleet_match_jax():
     jw = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), jws0)
     rjs = [jax.jit(jfleet)(jw, jnp.asarray(xs), jnp.asarray(uds)) for jfleet in (jl.fleet, jx.fleet)]
     for port_backend in ("torch", "lane"):
-        _, (tstep, tws0) = _di_filter("xla", port_backend)
+        tstep, tws0 = _port_di_filter(port_backend)
         tw = type(tws0)(*(a.expand((B,) + a.shape) for a in tws0))
         rt = tstep.fleet(tw, torch.as_tensor(xs), torch.as_tensor(uds))
         assert bool((rt.status == QPSolutionStatus.Optimal).all())

@@ -1,5 +1,5 @@
-"""The CUDA kernels (shared-matrix and per-problem ADMM) against their plain
-PyTorch version, on the card.
+"""The CUDA kernels (shared-matrix and per-problem ADMM, the lane backend's
+whole solve) against their plain PyTorch version, on the card.
 
 These tests need a CUDA device and nvcc; elsewhere they skip.  They import no
 JAX, so they also run where only the port's dependencies are installed:
@@ -7,11 +7,13 @@ JAX, so they also run where only the port's dependencies are installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import problem_family
+from chip_smoke import lane_family, problem_family
 from smooth_feedback_tpu_torch.convert import qp_from_numpy
 from smooth_feedback_tpu_torch.qp import (
     QPSolutionStatus,
@@ -593,15 +595,15 @@ def test_shared_factors_past_the_kernel_run_the_torch_loop(dev):
 # ------------------------------------------------------------ the lane kernel
 
 
-def _lane_inputs(n, m, B, prm, dev, seed=0):
-    """The lane kernel's float32 arguments for B of benchmarks/qp_bench.py's
+def _lane_args(n, m, B, dev, seed=0):
+    """The lane kernel's float32 operands for B of benchmarks/qp_bench.py's
     random QPs (chip_smoke.lane_family, density 0.3), as solve_qp_batch on
-    "lane" prepares them (the kernel factorizes)."""
+    "lane" hands them over (the kernel scales and factorizes)."""
     from chip_smoke import lane_family
     from smooth_feedback_tpu_torch.qp import lane_kernel_args
 
     qp = qp_from_numpy(lane_family(n, m, B, 0.3, seed), device=dev, dtype=torch.float32)
-    return lane_kernel_args(qp, None, None, prm)
+    return qp, lane_kernel_args(qp)
 
 
 def _f64(args):
@@ -610,30 +612,34 @@ def _f64(args):
 
 def test_lane_kernel_fixed_iterations_match_plain_version(dev):
     """admm_lane at the ASIF's (3, 53), B = 256, adaptive rho off, every
-    tolerance 0, 20 iterations from a seeded random start: every member runs
-    them in both; each vector within 1e-4 of its scale plus twice the f32
-    plain version's distance from its f64 run (chip_smoke's bound)."""
-    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_lane, admm_iterate_lane_reference
+    tolerance 0, 20 iterations from a seeded random warm start: every member
+    runs them in both, the Ruiz sweeps equal; each scaled iterate within
+    1e-4 of its scale plus twice the f32 plain version's distance from its
+    f64 run (chip_smoke's bound), and so are the scalings."""
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane, admm_solve_lane_reference
 
     prm = QPSolverParams(polish=False, rho=0.02, max_iter=20, stop_check_iter=10, eps_abs=0.0,
                          eps_rel=0.0, eps_primal_inf=0.0, eps_dual_inf=0.0, backend="lane")
-    args = list(_lane_inputs(3, 53, 256, prm, dev))
+    _, args = _lane_args(3, 53, 256, dev)
+    args = list(args)
     rng = np.random.default_rng(1)
-    for i in (16, 17, 18):  # x0, z0, y0
-        args[i] = torch.as_tensor(0.1 * rng.standard_normal(tuple(args[i].shape)),
-                                  dtype=torch.float32, device=dev)
-    admm_iterate_cuda_lane.launches = 0
-    k = admm_iterate_cuda_lane(prm, *args)
+    for i, k in ((5, 3), (6, 53)):  # the unscaled warm start
+        args[i] = torch.as_tensor(0.1 * rng.standard_normal((256, k)), dtype=torch.float32,
+                                  device=dev)
+    admm_solve_cuda_lane.launches = 0
+    k = admm_solve_cuda_lane(prm, *args, scaled=True)
     torch.cuda.synchronize()
-    assert admm_iterate_cuda_lane.launches == 1
-    r = admm_iterate_lane_reference(prm, *args)
-    d = admm_iterate_lane_reference(prm, *_f64(args))
+    assert admm_solve_cuda_lane.launches == 1
+    r = admm_solve_lane_reference(prm, *args)
+    d = admm_solve_lane_reference(prm, *_f64(args))
     for o in (k, r):
-        assert bool((o[3] == QPSolutionStatus.MaxIterations).all() and (o[4] == 20).all())
-    for kt, rt, dt in zip(k[:3], r[:3], d[:3]):
+        assert bool((o.status == QPSolutionStatus.MaxIterations).all() and (o.iters == 20).all())
+    assert torch.equal(k.sweeps.cpu(), r.sweeps.cpu())
+    for name in ("x", "z", "y", "c", "sx", "sy", "primal", "dual"):
+        kt, rt, dt = getattr(k, name), getattr(r, name), getattr(d, name)
         floor = float((rt.double() - dt).abs().max())
         scale = max(1.0, float(dt.abs().max()))
-        assert float((kt - rt).abs().max()) <= 1e-4 * scale + 2 * floor
+        assert float((kt - rt).abs().max()) <= 1e-4 * scale + 2 * floor, name
 
 
 @pytest.mark.parametrize("n,m,B,opts", [
@@ -642,47 +648,48 @@ def test_lane_kernel_fixed_iterations_match_plain_version(dev):
     (96, 96, 64, dict(compensated_check=True, max_iter=4000)),
 ])
 def test_lane_kernel_solves_match_plain_version(dev, n, m, B, opts):
-    """Whole solves through admm_lane against its plain version (f32,
-    refactorizing the adapting members alone, as the kernel does) and its
-    f64 run, by chip_smoke.lane_compare's rule: statuses equal to the f64
-    run's on as many members as the f32 plain version's, less max(1, B /
-    128).  Static rho: iteration counts equal to the f32 plain version's on
-    99.5 % of members, or as often equal to the f64 run's as the f32 plain
-    version's (within half a point), and where they agree the unscaled
-    primal within 1e-4 of each member's scale plus twice the plain version's
-    distance from f64.  Adaptive rho (discrete decisions from f32
-    residuals: two f32 runs take other rho paths to other points within
-    eps): iteration and refactorization counts equal to the f64 run's on as
-    many members as the f32 plain version's, less max(1, B / 32), and the
-    kernel refactorized.  Every member the kernel calls Optimal satisfies
-    the stopping test in f64 (1e-4 slack)."""
-    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_lane, admm_iterate_lane_reference
+    """Whole solves through admm_lane (scaling, factorization, loop and
+    unscaling in one launch) against its plain version (f32, refactorizing
+    the adapting members alone, as the kernel does) and its f64 run, by
+    chip_smoke.lane_compare's rule: statuses equal to the f64 run's on as
+    many members as the f32 plain version's, less max(1, B / 128).  Static
+    rho: iteration counts equal to the f32 plain version's on 99.5 % of
+    members, or as often equal to the f64 run's as the f32 plain version's
+    (within half a point), and where they agree the unscaled primal within
+    1e-4 of each member's scale plus twice the plain version's distance from
+    f64.  Adaptive rho (discrete decisions from f32 residuals: two f32 runs
+    take other rho paths to other points within eps): iteration and
+    refactorization counts equal to the f64 run's on as many members as the
+    f32 plain version's, less max(1, B / 32), and the kernel refactorized.
+    Every member the kernel calls Optimal satisfies the stopping test in f64
+    (1e-4 slack)."""
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane, admm_solve_lane_reference
 
     prm = QPSolverParams(polish=False, backend="lane", **opts)
-    args = _lane_inputs(n, m, B, prm, dev, seed=n + m)
-    admm_iterate_cuda_lane.launches = 0
-    k = admm_iterate_cuda_lane(prm, *args)
+    _, args = _lane_args(n, m, B, dev, seed=n + m)
+    admm_solve_cuda_lane.launches = 0
+    k = admm_solve_cuda_lane(prm, *args, scaled=True)
     torch.cuda.synchronize()
-    assert admm_iterate_cuda_lane.launches == 1
-    r = admm_iterate_lane_reference(prm, *args, member_refactor=True)
-    d = admm_iterate_lane_reference(prm, *_f64(args), member_refactor=True)
-    assert int((k[3] == d[3]).sum()) >= int((r[3] == d[3]).sum()) - max(1, B // 128)
+    assert admm_solve_cuda_lane.launches == 1
+    r = admm_solve_lane_reference(prm, *args, member_refactor=True)
+    d = admm_solve_lane_reference(prm, *_f64(args), member_refactor=True)
+    assert int((k.status == d.status).sum()) >= int((r.status == d.status).sum()) - max(1, B // 128)
     share = lambda mask: float(mask.float().mean())
-    sx = args[6].double()
     if opts.get("adaptive_rho"):
-        for i in (4, 7):
-            assert int((k[i] == d[i]).sum()) >= int((r[i] == d[i]).sum()) - max(1, B // 32), i
-        assert int(k[7].sum()) > 0  # the kernel refactorized
+        for name in ("iters", "refactors"):
+            ko, ro, do = getattr(k, name), getattr(r, name), getattr(d, name)
+            assert int((ko == do).sum()) >= int((ro == do).sum()) - max(1, B // 32), name
+        assert int(k.refactors.sum()) > 0  # the kernel refactorized
     else:
-        kr, kd, rd = share(k[4] == r[4]), share(k[4] == d[4]), share(r[4] == d[4])
+        kr, kd, rd = share(k.iters == r.iters), share(k.iters == d.iters), share(r.iters == d.iters)
         assert kr >= 0.995 or (rd < 0.995 and kd >= rd - 0.005), (kr, kd, rd)
-        xk, xr, xd = (o[0].double() * sx for o in (k, r, d))
+        xk, xr, xd = (o.primal.double() for o in (k, r, d))
         bound = 1e-4 * xd.abs().amax(dim=1).clamp(min=1.0) + 2 * (xr - xd).abs().amax(dim=1)
-        assert bool(((xk - xr).abs().amax(dim=1) <= bound)[k[4] == r[4]].all())
-    # the kernel's Optimal points, re-checked in f64 on the unscaled data
+        assert bool(((xk - xr).abs().amax(dim=1) <= bound)[k.iters == r.iters].all())
+    # the kernel's Optimal points (its own z, unscaled), re-checked in f64
+    # on the unscaled data
     P, q, A = (a.double() for a in args[:3])
-    c, sy = args[5].double()[:, None], args[7].double()
-    x, z, y = k[0].double() * sx, k[1].double() / sy, k[2].double() * sy / c
+    x, z, y = k.primal.double(), k.z.double() / k.sy.double(), k.dual.double()
     Ax = torch.einsum("bmn,bn->bm", A, x)
     Px = torch.einsum("bij,bj->bi", P, x)
     Aty = torch.einsum("bmn,bm->bn", A, y)
@@ -690,52 +697,101 @@ def test_lane_kernel_solves_match_plain_version(dev, n, m, B, opts):
     pres, dres = ninf(Ax - z), ninf(Px + q + Aty)
     ptol = prm.eps_abs + prm.eps_rel * torch.maximum(ninf(Ax), ninf(z)) + 1e-4
     dtol = prm.eps_abs + prm.eps_rel * torch.maximum(ninf(Px), torch.maximum(ninf(q), ninf(Aty))) + 1e-4
-    opt = k[3] == QPSolutionStatus.Optimal
+    opt = k.status == QPSolutionStatus.Optimal
     assert bool(opt.any()) and bool(((pres <= ptol) & (dres <= dtol))[opt].all())
 
 
 def test_lane_plan_matches_the_library(dev):
     """lane_plan mirrors admm_lane_plan of the built library at the smoke's
-    shapes, and n = m = 128 fits neither."""
+    shapes and the boundary shapes, and n = m = 128 fits neither."""
     import ctypes
 
     from smooth_feedback_tpu_torch import _build
     from smooth_feedback_tpu_torch.qp.cuda_kernel import lane_fits, lane_plan
 
     lib = _build.load()
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     for B, n, m in [(256, 3, 53), (256, 8, 8), (256, 32, 32), (256, 96, 96), (256, 3, 24),
-                    (64, 32, 256), (1, 3, 53), (4096, 3, 53)]:
+                    (64, 32, 256), (1, 3, 53), (1, 2, 32), (4096, 3, 53), (4, 32, 1140),
+                    (4, 105, 105), (4, 3, 3413)]:
         assert lib.admm_lane_plan(B, n, m, out) == 1
         assert tuple(out) == lane_plan(B, n, m)
     assert lib.admm_lane_plan(4, 128, 128, out) == 0 and not lane_fits(128, 128)
 
 
 def test_lane_route_on_card(dev):
-    """solve_qp_batch on "lane" with CUDA tensors: one admm_lane launch for
-    a shape the kernel holds, the statuses and counts of that launch; for
-    n = m = 128 the plain lane loop on the card, one lane_fallthroughs,
-    nothing launched."""
-    from chip_smoke import lane_family
-    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_lane, lane_kernel_args
+    """solve_qp_batch on "lane" with CUDA tensors: exactly one admm_lane
+    launch and no Ruiz sweep in torch for a shape the kernel holds, cold,
+    warm-started and from given factors, with polish off (the solution is
+    the kernel's) and on (polish after the kernel's scaled iterates); the
+    statuses and counts of that launch; for n = m = 128 the plain lane solve
+    on the card, one lane_fallthroughs, nothing launched."""
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane, lane_kernel_args
     from smooth_feedback_tpu_torch.qp import solver as qsolver
 
     prm = QPSolverParams(max_iter=4000, polish=False, adaptive_rho=True, backend="lane")
-    qp = qp_from_numpy(lane_family(3, 24, 256, 0.3, 5), device=dev, dtype=torch.float32)
-    admm_iterate_cuda_lane.launches = 0
+    qp, args = _lane_args(3, 24, 256, dev, seed=5)
+    sweeps = qsolver.lane_ruiz_sweeps
+    admm_solve_cuda_lane.launches = 0
     sol = solve_qp_batch(qp, prm)
     torch.cuda.synchronize()
-    assert admm_iterate_cuda_lane.launches == 1
-    k = admm_iterate_cuda_lane(prm, *lane_kernel_args(qp, None, None, prm))
+    assert admm_solve_cuda_lane.launches == 1 and qsolver.lane_ruiz_sweeps == sweeps
+    k = admm_solve_cuda_lane(prm, *args)
     torch.cuda.synchronize()
-    assert torch.equal(sol.status, k[3]) and torch.equal(sol.iters, k[4])
+    assert torch.equal(sol.status, k.status) and torch.equal(sol.iters, k.iters)
+    assert torch.equal(sol.primal, k.primal) and torch.equal(sol.objective, k.objective)
+    warm = solve_qp_batch(qp, prm, sol)
+    fac = qp_factorize(qp, prm)
+    given = solve_qp_batch(qp, dataclasses.replace(prm, adaptive_rho=False), None, fac)
+    polished = solve_qp_batch(qp, dataclasses.replace(prm, polish=True))
+    torch.cuda.synchronize()
+    assert admm_solve_cuda_lane.launches == 5 and qsolver.lane_ruiz_sweeps == sweeps
+    assert bool((warm.iters <= sol.iters).all()) and float((warm.status == 0).float().mean()) >= 0.99
+    assert float((given.status == 0).float().mean()) >= 0.99
+    assert float((polished.status == 0).float().mean()) >= 0.99
+    assert admm_solve_cuda_lane(prm, *lane_kernel_args(qp, fac)).sweeps.eq(0).all()
+
+    # a float64 batch runs the same float32 launch: the statuses and
+    # iteration counts are the float32 solve's, polished or not
+    qp64 = qp_from_numpy(lane_family(3, 24, 256, 0.3, 5), device=dev, dtype=torch.float64)
+    admm_solve_cuda_lane.launches = 0
+    sol64 = solve_qp_batch(qp64, prm)
+    polished64 = solve_qp_batch(qp64, dataclasses.replace(prm, polish=True))
+    torch.cuda.synchronize()
+    assert admm_solve_cuda_lane.launches == 2 and qsolver.lane_ruiz_sweeps == sweeps
+    assert sol64.primal.dtype == torch.float64
+    assert torch.equal(sol64.status, sol.status) and torch.equal(sol64.iters, sol.iters)
+    assert torch.equal(sol64.primal, sol.primal.double())
+    assert torch.equal(polished64.iters, polished.iters)
+    assert float((polished64.status == 0).float().mean()) >= 0.99
 
     qp = qp_from_numpy(lane_family(128, 128, 4, 0.3, 6), device=dev, dtype=torch.float32)
     falls = qsolver.lane_fallthroughs
-    admm_iterate_cuda_lane.launches = admm_iterate_cuda.launches = admm_iterate_cuda_shared.launches = 0
+    admm_solve_cuda_lane.launches = admm_iterate_cuda.launches = admm_iterate_cuda_shared.launches = 0
     sol = solve_qp_batch(qp, QPSolverParams(max_iter=4000, polish=False, backend="lane"))
     torch.cuda.synchronize()
-    assert admm_iterate_cuda_lane.launches == admm_iterate_cuda.launches == 0
+    assert admm_solve_cuda_lane.launches == admm_iterate_cuda.launches == 0
     assert admm_iterate_cuda_shared.launches == 0
     assert qsolver.lane_fallthroughs == falls + 1
     assert bool(torch.isfinite(sol.primal).all())
+
+
+def test_lane_kernel_clock_split(dev):
+    """admm_lane's clock buffer: the member asked for writes its phase sums
+    (every phase of a solve that factorizes, iterates, checks and adapts is
+    non-negative and the loop's are positive) and its two iteration counts,
+    which add up to its iterations and its checks."""
+    from chip_smoke import n_checks
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane
+
+    prm = QPSolverParams(max_iter=4000, polish=False, adaptive_rho=True, compensated_check=True,
+                         backend="lane")
+    _, args = _lane_args(3, 24, 256, dev, seed=5)
+    k = admm_solve_cuda_lane(prm, *args)
+    member = int(torch.argmax(k.iters))
+    clocks = torch.zeros(8, dtype=torch.int64, device=dev)
+    admm_solve_cuda_lane(prm, *args, clocks=clocks, clock_member=member)
+    c = clocks.tolist()
+    assert all(v >= 0 for v in c) and c[0] > 0 and c[1] > 0 and c[2] > 0 and c[3] > 0
+    assert c[6] + c[7] == int(k.iters[member])
+    assert c[7] == int(n_checks(k.iters[member:member + 1].cpu(), prm.stop_check_iter)[0])

@@ -40,7 +40,7 @@ from smooth_feedback_tpu_torch.controllers import (
 )
 from smooth_feedback_tpu_torch.groups import SE2, Bundle, Rn
 from smooth_feedback_tpu_torch.qp import (
-    QPSolutionStatus, QPSolverParams, admm_iterate_cuda_lane, admm_iterate_cuda_shared,
+    QPSolutionStatus, QPSolverParams, admm_iterate_cuda_shared, admm_solve_cuda_lane,
 )
 
 torch.set_num_threads(1)
@@ -158,7 +158,7 @@ def test_closed_loop_mpc_asif_fleet_f32():
         x = jax.vmap(lambda xi, ui: JX.rplus(xi, DT * jf(xi, ui)))(x, a.u)
         return x, m, a
 
-    admm_iterate_cuda_shared.launches = admm_iterate_cuda_lane.launches = 0
+    admm_iterate_cuda_shared.launches = admm_solve_cuda_lane.launches = 0
     for i in range(steps):
         t = DT * i
         jx, jm, ja = jstep(jx, jmws, jaws, t)
@@ -175,4 +175,4 @@ def test_closed_loop_mpc_asif_fleet_f32():
         hmin = float(vmap(lambda xi: h(t, xi))(tx).min())
         assert hmin > 0.0
         jmws, jaws, mws, aws = jm.warmstart, ja.warmstart, m.warmstart, a.warmstart
-    assert admm_iterate_cuda_shared.launches == admm_iterate_cuda_lane.launches == 0
+    assert admm_iterate_cuda_shared.launches == admm_solve_cuda_lane.launches == 0
