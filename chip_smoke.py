@@ -152,7 +152,7 @@ ASIF_T = 2.5
 # benchmarks/ekf_bench.py's fleets at its B; its 100 chained steps cut to
 # 50 for the smoke's time when the examples joined it
 EKF_B = 4096
-EKF_STEPS = 50
+EKF_STEPS = 20  # 50 until the parallel slice joined the smoke (100 in ekf_bench.py)
 EKF_REPS = 2  # ekf_bench.py takes the best of 3
 EKF_TAU = 0.05
 EKF_CHECK_STEPS = 10
@@ -2199,7 +2199,8 @@ def ocp_sweep_phase(dev):
     iteration), then the rescue.  Requires an Optimal share after rescue
     at least the JAX package's on the same velocities, every Optimal
     member's float64 KKT residual <= tol, and the launches equal to the
-    lockstep iterations.  Returns the sweep's launches and solution."""
+    lockstep iterations.  Returns the sweep's launches, solution and
+    seconds."""
     from smooth_feedback_tpu_torch.qp import solver as qsolver
     from smooth_feedback_tpu_torch.solvers import solve_nlp_sqp_batch
 
@@ -2247,7 +2248,7 @@ def ocp_sweep_phase(dev):
     require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": lockstep},
             f"admm_problem launches {counts} != {lockstep} lockstep iterations")
     require(rcounts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 0}, f"the rescue launched {rcounts}")
-    return counts, sol
+    return counts, sol, t_sweep
 
 
 def ocp_lockstep(dev, iters, trace, backend="cuda", dtype=torch.float32):
@@ -3608,6 +3609,275 @@ def examples_phase(dev):
     return launches, found
 
 
+PAR_STEPS = 20  # closed-loop steps of the sharded condensed fleet
+PAR_ONE_CARD_SHARDS = 4  # the mesh on a one-card machine: 4 shards on cuda:0
+
+
+def parallel_mesh():
+    """The mesh of every visible card (one shard each) or, with one card,
+    PAR_ONE_CARD_SHARDS shards on cuda:0, each on its own stream."""
+    from smooth_feedback_tpu_torch.parallel import dp_mesh
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        mesh = dp_mesh()
+        what = f"{n} cards, one shard each"
+    else:
+        mesh = dp_mesh([torch.device("cuda", 0)] * PAR_ONE_CARD_SHARDS)
+        what = (f"one visible card: {PAR_ONE_CARD_SHARDS} shards on cuda:0, each on its own "
+                f"stream; no second card was exercised")
+    phase("parallel", f"mesh {[str(d) for d in mesh.devices]} ({what})")
+    return mesh
+
+
+def per_device(mesh, build):
+    """``build(d)`` once for each distinct device of the mesh, listed shard
+    by shard (a step's or an NLP's tensors live on the device it was built
+    on)."""
+    built = {}
+    for d in mesh.devices:
+        if d not in built:
+            built[d] = build(d)
+    return [built[d] for d in mesh.devices]
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def parallel_fleet_phase(mesh, step, kept, dev):
+    """PAR_STEPS closed-loop steps of the condensed main path at B = 8192
+    through make_sharded_fleet_step, the sharded warm start and states
+    carried from step to step, and before it the same steps unsharded from
+    the same states (the main path's last kept step: warm-started).
+    Gates: every member Optimal at every step, one admm_shared launch per
+    shard per step, |u - u_unsharded| <= PRIMAL_TOL; admm_shared against
+    its plain version on shard 0's first launch.  Returns the sharded run's
+    launches and admm_shared's error on that launch."""
+    from smooth_feedback_tpu_torch.parallel import (
+        make_sharded_fleet_step, shard_batch, shard_pytree,
+    )
+    from smooth_feedback_tpu_torch.parallel.mesh_utils import _shard_map
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda_shared, shared_kernel_args
+
+    i0 = len(kept) - 1
+    xs0, ws0, _ = kept[i0]
+    fns = per_device(mesh, lambda d: step if d == dev else make_main_path("cuda", d)[0])
+    sharded_step = make_sharded_fleet_step([f.fleet_shared_t for f in fns], mesh)
+    plant = lambda x, u: x + DT * torch.stack([x[:, 1], u[:, 0]], dim=1)
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        if name == "unsharded":
+            xs, ws, fleet, move = xs0, ws0, step.fleet_shared_t, plant
+            whole = lambda a: a
+        else:
+            xs, ws, fleet = shard_batch(xs0, mesh), shard_pytree(ws0, mesh), sharded_step
+            move = _shard_map(plant, mesh, (0, 0), 0)
+            whole = lambda a: a.gather(dev)
+        st, it, us, secs = [], [], [], []
+        reset_counts()
+        for i in range(PAR_STEPS):
+            sync_all()
+            t0 = time.perf_counter()
+            r = fleet(ws, DT * (i0 + i), xs)
+            xs, ws = move(xs, r.u), r.warmstart
+            sync_all()
+            secs.append(time.perf_counter() - t0)
+            st.append(whole(r.status))
+            it.append(whole(r.warmstart.iters))
+            us.append(whole(r.u))
+        runs[name] = (torch.stack(st), torch.stack(it), torch.stack(us), read_counts(), secs)
+    st_u, it_u, u_u, c_u, s_u = runs["unsharded"]
+    st_s, it_s, u_s, c_s, s_s = runs["sharded"]
+    same = float(((st_s == st_u) & (it_s == it_u)).float().mean())
+    du = float((u_s - u_u).abs().max())
+    opt = [float((st_s[i] == 0).float().mean()) for i in range(PAR_STEPS)]
+    phase("parallel", f"condensed fleet, {PAR_STEPS} steps x B={B} from step {i0} of the main "
+                      f"path, {mesh.size} shards of {B // mesh.size}: Optimal sharded min "
+                      f"{min(opt) * 100:.3f}% over the steps (unsharded "
+                      f"{float((st_u == 0).float().mean()) * 100:.3f}% overall); status and "
+                      f"iteration count equal to the unsharded run's in {same * 100:.3f}% of "
+                      f"member-steps; max |u - u_unsharded| {du:.3e} (bound {PRIMAL_TOL:g}); "
+                      f"launches sharded {c_s}, unsharded {c_u}; median step sharded "
+                      f"{float(np.median(s_s)) * 1e3:.3f} ms, unsharded "
+                      f"{float(np.median(s_u)) * 1e3:.3f} ms")
+    require(min(opt) == 1.0, f"a sharded step left members not Optimal (min {min(opt):.5f})")
+    require(c_s == {"admm_shared": mesh.size * PAR_STEPS, "admm_lane": 0, "admm_problem": 0},
+            f"sharded fleet launches {c_s} != {mesh.size} x {PAR_STEPS} admm_shared")
+    require(du <= PRIMAL_TOL, f"sharded u differs from unsharded by {du:.3e}")
+    require(bool(torch.isfinite(u_s).all()), "non-finite sharded u")
+    # shard 0's first launch, on its own inputs, against the plain version
+    k = B // mesh.size
+    ws_0 = type(ws0)(*(a[:k] for a in ws0))
+    qps = fns[0].condensed_qp(DT * i0, xs0[:k].to(mesh.devices[0]))
+    args = shared_kernel_args(qps, fns[0].factors, type(ws0)(*(a.to(mesh.devices[0]) for a in ws_0)))
+    err, _ = compare_with_plain(f"parallel shard 0 of {mesh.size}, condensed B={k}",
+                                admm_iterate_cuda_shared, qp_params("cuda"), args, qps)
+    return c_s, err
+
+
+def parallel_ekf_phase(mesh, dev):
+    """The SE(2) and SO(3) EKF fleets at B = 4096, EKFFleetState and
+    SqrtEKFFleetState, EKF_CHECK_STEPS chained steps on states sharded with
+    shard_ekf_fleet, against the same steps unsharded at EKF_TOL; no
+    kernel launches."""
+    from torch.func import vmap
+    from smooth_feedback_tpu_torch import estimators as E
+    from smooth_feedback_tpu_torch.parallel import shard_ekf_fleet
+    from smooth_feedback_tpu_torch.parallel.mesh_utils import _shard_map
+
+    reset_counts()
+    for name in ("SE(2)", "SO(3)"):
+        G, dyn, meas, Q, R = ekf_problem(name, dev)
+        lay = ekf_layouts(G, dyn, meas, Q, R)
+        lays = per_device(mesh, lambda d: ekf_layouts(*ekf_problem(name, d)))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        g0 = vmap(G.exp)(0.2 * torch.randn((EKF_B, G.ndof), generator=gen, device=dev))
+        noise = 0.05 * torch.randn((EKF_CHECK_STEPS, EKF_B, G.ndof), generator=gen, device=dev)
+        for lname, state_type in (("fleet", E.EKFFleetState), ("sqrt fleet", E.SqrtEKFFleetState)):
+            reset, step, cov = lay[lname]
+            axes = state_type(0, -1)
+            sharded_step = _shard_map([ly[lname][1] for ly in lays], mesh, (axes, 0), axes)
+            s, ss = reset(g0), shard_ekf_fleet(reset(g0), mesh)
+            sync_all()
+            t0 = time.perf_counter()
+            for k in range(EKF_CHECK_STEPS):
+                s = step(s, noise[k])
+            sync_all()
+            t1 = time.perf_counter()
+            for k in range(EKF_CHECK_STEPS):
+                ss = sharded_step(ss, noise[k])
+            sync_all()
+            t2 = time.perf_counter()
+            whole = type(s)(*(a.gather(dev) for a in ss))
+            dg, dP = ekf_diff(G, whole, s, cov, cov)
+            phase("parallel", f"EKF {name} {lname}, B={EKF_B} over {mesh.size} shards, "
+                              f"{EKF_CHECK_STEPS} chained steps: max |dg| {dg:.3e}, max |dP| "
+                              f"{dP:.3e} against unsharded (bound {EKF_TOL:g}); "
+                              f"{(t1 - t0) * 1e3 / EKF_CHECK_STEPS:.3f} ms a step unsharded, "
+                              f"{(t2 - t1) * 1e3 / EKF_CHECK_STEPS:.3f} ms sharded")
+            require(max(dg, dP) <= EKF_TOL, f"sharded EKF {name} {lname} differs from unsharded")
+    counts = read_counts()
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": 0},
+            f"a sharded EKF fleet launched {counts}")
+
+
+def parallel_lane_phase(mesh, vparts, vkept, dev):
+    """The vehicle-asif path's ASIF QPs (n = 3, m = 53, B = ASIF_B) through
+    _shard_map of solve_qp_batch(backend="lane", adaptive rho on), warm
+    started from the path's carry: statuses, iteration counts and primal
+    bit-equal to one unsharded launch (each admm_lane warp owns one
+    problem), one launch per shard; admm_lane against its plain version on
+    shard 0's launch.  Returns the sharded launches and that error."""
+    from smooth_feedback_tpu_torch.controllers import asif_to_qp_fleet
+    from smooth_feedback_tpu_torch.groups import Rn
+    from smooth_feedback_tpu_torch.parallel.mesh_utils import _shard_map
+    from smooth_feedback_tpu_torch.qp import lane_kernel_args, solve_qp_batch
+
+    X, f, h, mpc, _, asif, _ = vparts
+    t, xs, mws, aws, mk, ak = vkept[-1]
+    fl = asif_filter(dev)
+    aq = asif_to_qp_fleet(X, Rn(2), asif_to_qp_params(), ASIF_T, xs, mk.u, fl["W_u"], fl["ulim"],
+                          f, h, fl["bu"])
+    prm = asif_qp_params("lane", True)
+    reset_counts()
+    one = solve_qp_batch(aq, prm, aws)
+    c_one = read_counts()
+    solve = _shard_map(lambda qp, ws: solve_qp_batch(qp, prm, ws), mesh, (0, 0), 0)
+    reset_counts()
+    sh = solve(aq, aws)
+    sync_all()
+    counts = read_counts()
+    whole = type(one)(*(a.gather(dev) for a in sh))
+    equal = {k: torch.equal(getattr(whole, k), getattr(one, k))
+             for k in ("status", "iters", "primal")}
+    phase("parallel", f"ASIF lane QP (3, 53), B={ASIF_B} over {mesh.size} shards, adaptive rho: "
+                      f"bit-equal to one unsharded launch {equal}; Optimal "
+                      f"{float((whole.status == 0).float().mean()) * 100:.3f}%; launches sharded "
+                      f"{counts}, unsharded {c_one}")
+    require(all(equal.values()), f"sharded lane solve differs from the unsharded launch: {equal}")
+    require(counts == {"admm_shared": 0, "admm_lane": mesh.size, "admm_problem": 0},
+            f"sharded lane launches {counts} != {mesh.size} admm_lane")
+    k = ASIF_B // mesh.size
+    d0 = mesh.devices[0]
+    part = lambda tree: type(tree)(*(a[:k].to(d0) for a in tree))
+    err, _ = lane_compare(f"parallel shard 0 of {mesh.size}, ASIF lane B={k}",
+                          lane_kernel_args(part(aq), None, part(aws)), prm)
+    return counts, err
+
+
+def parallel_sqp_phase(mesh, dev, sweep_sol, sweep_s):
+    """make_sharded_sqp_fleet on the ocp-sweep phase's B = OCP_B velocities,
+    set against that phase's unsharded sweep (no second unsharded run).
+    Gates: the float64 KKT residual <= OCP_TOL for every member the sharded
+    sweep calls Optimal, admm_problem launches = the sum of the shards'
+    lockstep iterations, admm_shared 0; admm_problem against its plain
+    version on shard 0's first lockstep batch (relative_fixed_check).
+    Returns the launches and that error."""
+    from smooth_feedback_tpu_torch._precision import ieee_f32_matmul
+    from smooth_feedback_tpu_torch.parallel import make_sharded_sqp_fleet
+    from smooth_feedback_tpu_torch.qp import admm_iterate_cuda, per_problem_kernel_args
+    from smooth_feedback_tpu_torch.solvers import sqp
+
+    prm = ocp_sweep_params("cuda")
+    paths = per_device(mesh, lambda d: ocp_sweep_path(d))
+    make, vels, z0 = paths[0]
+    sharded = make_sharded_sqp_fleet([p[0] for p in paths], mesh, prm)
+    reset_counts()
+    sync_all()
+    t0 = time.perf_counter()
+    sol = sharded(vels, z0)
+    sync_all()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    lockstep = [int(p.max()) for p in sol.iters.parts]
+    whole = type(sweep_sol)(*(a.gather(dev) for a in sol))
+    kkt64 = ocp_kkt_f64(vels, whole)
+    is_opt = (whole.status == 0).cpu()
+    worst64 = float(kkt64[is_opt].max()) if bool(is_opt.any()) else 0.0
+    same = (whole.status == sweep_sol.status).cpu()
+    phase("parallel", f"SE(2) OCP sweep, B={OCP_B} over {mesh.size} shards of "
+                      f"{OCP_B // mesh.size}: Optimal {float(is_opt.float().mean()) * 100:.3f}% "
+                      f"(unsharded sweep {float((sweep_sol.status == 0).float().mean()) * 100:.3f}%"
+                      f"), statuses equal to the unsharded sweep's in {int(same.sum())} of {same.numel()} "
+                      f"members (differ: {torch.nonzero(~same).flatten().tolist()}); lockstep "
+                      f"iterations per shard {lockstep} (unsharded "
+                      f"{int(sweep_sol.iters.max())}); launches {counts}; Optimal members' KKT "
+                      f"recomputed in float64 on the CPU: max {worst64:.3e} (tol {OCP_TOL:g}); "
+                      f"{secs:.3f} s sharded, {sweep_s:.3f} s unsharded")
+    require(worst64 <= OCP_TOL, f"a sharded Optimal member's float64 KKT residual is {worst64:.3e}")
+    require(counts == {"admm_shared": 0, "admm_lane": 0, "admm_problem": sum(lockstep)},
+            f"sharded sweep launches {counts} != the shards' lockstep iterations {lockstep}")
+    # shard 0's first lockstep batch, on its own members
+    k = OCP_B // mesh.size
+    caps = []
+    with ieee_f32_matmul():
+        sqp._solve_nlp_sqp_batch_impl(make, vels[:k], z0[:k], dataclasses.replace(prm, max_iter=1),
+                                      None, lambda s, i: caps.append(i) if s == "qp" else None)
+    qprm = prm.qp
+    args = per_problem_kernel_args(caps[0]["qp"], None, caps[0]["ws"], qprm)
+    err = relative_fixed_check(admm_iterate_cuda, args, qprm, OCP_FIRST_ITERS,
+                               f"parallel shard 0 of {mesh.size}, ocp-sweep {OCP_QP_SHAPE} B={k}, "
+                               f"lockstep iteration 1")
+    return counts, err
+
+
+def parallel_phase(step, main_kept, vparts, vkept, sweep_sol, sweep_s, dev):
+    """The parallel slice: the condensed fleet, both EKF fleets, the ASIF
+    lane QPs and the SE(2) OCP sweep, each sharded over the mesh.  Returns
+    ``{kernel: launches}``, ``{kernel: worst error}`` on shard 0's
+    launches and the mesh's size."""
+    mesh = parallel_mesh()
+    c_fleet, e_shared = parallel_fleet_phase(mesh, step, main_kept, dev)
+    parallel_ekf_phase(mesh, dev)
+    c_lane, e_lane = parallel_lane_phase(mesh, vparts, vkept, dev)
+    c_sqp, e_problem = parallel_sqp_phase(mesh, dev, sweep_sol, sweep_s)
+    launches = {name: c_fleet[name] + c_lane[name] + c_sqp[name] for name in c_fleet}
+    errs = {"admm_shared": e_shared, "admm_lane": e_lane, "admm_problem": e_problem}
+    return launches, errs, mesh.size
+
+
 def main():
     t_start = time.perf_counter()
     mark = lambda what: phase("time", f"{what}: {time.perf_counter() - t_start:.1f} s since the start")
@@ -3624,8 +3894,8 @@ def main():
     phase("setup", f"make_mpc_step, both paths (K={K} condensed, K={FLEET_K} sparse) "
                    f"{time.perf_counter() - t0:.3f} s")
     rows = {"admm_shared": kernel_phase(step, dev), "admm_problem": problem_kernel_phase(fleet, dev)}
-    counts, kept = main_path_phase(step, ws0, dev)
-    err = reference_phase(dev, kept)
+    counts, main_kept = main_path_phase(step, ws0, dev)
+    err = reference_phase(dev, main_kept)
     rows["admm_shared"] = (max(rows["admm_shared"][0], err), rows["admm_shared"][1])
     launches = {"admm_shared": counts["admm_shared"]}
     counts, kept = fleet_phase(fleet, fws0, dev)
@@ -3667,7 +3937,7 @@ def main():
     mark("the state-estimation slice (ekf-fleet, output-feedback, pid-spline)")
 
     # the NLP slice: every lockstep SQP subproblem through admm_problem
-    ocounts, osol = ocp_sweep_phase(dev)
+    ocounts, osol, osecs = ocp_sweep_phase(dev)
     first = ocp_sweep_split(dev)
     worst_c, _ = ocp_sweep_kernel_phase(first, dev)
     # the path-level distance between routes is held to its own bound (f32
@@ -3675,6 +3945,14 @@ def main():
     ocp_sweep_routes_phase(dev, osol)
     ocp_single_phase(dev, osol)
     mark("the NLP slice (ocp-sweep)")
+
+    # the parallel slice: the condensed fleet, the EKF fleets, the ASIF lane
+    # QPs and the OCP sweep sharded over the mesh, each shard on its stream
+    plaunches, perrs, pn = parallel_phase(step, main_kept, vparts, vkept, osol, osecs, dev)
+    for name, e in perrs.items():
+        rows[name] = (max(rows[name][0], e), rows[name][1])
+    phase("launches", f"parallel {plaunches}")
+    mark("the parallel slice (condensed fleet, EKF fleets, lane QP, OCP sweep, sharded)")
 
     # the refinement slice: every pass's and every rescue's subproblems
     # through admm_problem, the second pass's on the streaming route
@@ -3696,23 +3974,30 @@ def main():
 
     by_path = {
         "admm_shared": {"condensed": launches["admm_shared"],
-                        "vehicle-asif": vcounts["admm_shared"]},
+                        "vehicle-asif": vcounts["admm_shared"],
+                        "parallel": plaunches["admm_shared"]},
         "admm_problem": {"per-member fleet": launches["admm_problem"],
                          "output-feedback": ofcounts["admm_problem"],
                          "ocp-sweep": ocounts["admm_problem"], **rcounts,
-                         "ocp-solve": scounts["admm_problem"], "ocp-qp": qcounts["admm_problem"]},
-        "admm_lane": {"vehicle-asif": vcounts["admm_lane"], "lane": lcounts},
+                         "ocp-solve": scounts["admm_problem"], "ocp-qp": qcounts["admm_problem"],
+                         "parallel": plaunches["admm_problem"]},
+        "admm_lane": {"vehicle-asif": vcounts["admm_lane"], "lane": lcounts,
+                      "parallel": plaunches["admm_lane"]},
     }
     for name in by_path:
         by_path[name].update({f"examples/{ex}": c[name] for ex, c in xcounts.items() if c[name]})
     shapes = {
-        "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64"],
+        "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64",
+                        f"B={B // pn} n=m=52 (parallel, {pn} shards)"],
         "admm_problem": [f"B={FLEET_B} n=163 m=99", f"B={ASIF_B} n=3 m=53"]
                         + [f"B=1 (n, m)={k}" for k in orows]
                         + [f"B={OCP_B} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]}",
                            f"B={OCP_B} n={rshape[0]} m={rshape[1]}"]
-                        + [f"B=1 n={n} m={m}" for n, m in sshapes + [qshape]],
-        "admm_lane": [f"B={ASIF_B} n=3 m=53"] + lshapes,
+                        + [f"B=1 n={n} m={m}" for n, m in sshapes + [qshape]]
+                        + [f"B={OCP_B // pn} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]} (parallel, "
+                           f"{pn} shards)"],
+        "admm_lane": [f"B={ASIF_B} n=3 m=53"] + lshapes
+                     + [f"B={ASIF_B // pn} n=3 m=53 (parallel, {pn} shards)"],
     }
     for name, found in xfound.items():
         shapes[name] += [f"B={b} n={n} m={m} (examples/{ex})" for ex, _, _, (b, n, m) in found]

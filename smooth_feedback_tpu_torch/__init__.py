@@ -10,13 +10,15 @@ collocation mesh, the QP transcription, the MPC (condensed and sparse fleet
 steps, the ``MPC`` class), the ASIF safety filter, the PID, Lie-group
 splines, the EKF (plain, iterated, square-root and fleet forms), the
 collocation NLP path with its SQP and mesh refinement, the second-order
-group derivatives, the FLOP counters and the solver bridges (``compat``).
+group derivatives, the FLOP counters, the solver bridges (``compat``) and
+data parallelism over the devices of one host (``parallel``: a fleet's
+batch split over a mesh, each shard on its own device and stream).
 Importing the package builds nothing; the kernels are compiled at first
 use.
 """
 
-from . import groups
+from . import groups, parallel
 
 __version__ = "0.1.0"
 
-__all__ = ["groups", "__version__"]
+__all__ = ["groups", "parallel", "__version__"]

@@ -31,8 +31,9 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.func import jacfwd, jacrev, vmap
+from torch.func import jacrev, vmap
 
+from .._func import jacfwd
 from .._precision import ieee_f32_matmul
 from ..groups.base import LieGroup, ad_generators
 from ..qp.solver import solve_qp_batch

@@ -202,7 +202,9 @@ def make_mpc_step(
     controller; ``step.fleet(warmstarts, ts, xs)`` runs a fleet on
     per-member clocks (sparse path); ``step.fleet_shared_t(warmstarts, t,
     xs)`` runs a fleet on a common clock (both paths);
-    ``step.transcribe``/``step.transcribe_vectors`` expose the QP assembly."""
+    ``step.transcribe``/``step.transcribe_vectors`` expose the QP assembly.
+    ``step``, ``step.fleet`` and ``step.fleet_shared_t`` carry the
+    ``device`` their tensors live on."""
     if time_varying and reuse_factors:
         raise ValueError(
             "reuse_factors requires step-invariant QP matrices; time-varying "
@@ -416,6 +418,7 @@ def make_mpc_step(
         step.fleet_shared_t = fleet_shared_t
         step.transcribe = transcribe
         step.transcribe_vectors = transcribe_vectors
+        _mark_device(device, step, fleet, fleet_shared_t)
         return step, _zero_ws(lay["Nvar"], lay["Ncon"], dtype, device)
 
     # the condensed path
@@ -516,7 +519,15 @@ def make_mpc_step(
     step.factors = cond_factors
     step.transcribe = transcribe
     step.transcribe_vectors = transcribe_vectors
+    _mark_device(device, step, _no_fleet, fleet_shared_t_condensed)
     return step, _zero_ws(uL, max(crL, 1), dtype, device)
+
+
+def _mark_device(device, *fns):
+    """Give each step function the ``device`` its tensors live on (what
+    ``parallel.make_sharded_fleet_step`` checks a mesh against)."""
+    for fn in fns:
+        fn.device = torch.device(device)
 
 
 class MPC:

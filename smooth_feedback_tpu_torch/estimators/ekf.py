@@ -28,8 +28,9 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import vmap
 
+from .._func import jacfwd
 from .._precision import ieee_f32_matmul
 from ..groups.base import LieGroup, ad_generators
 

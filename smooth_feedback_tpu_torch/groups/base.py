@@ -22,7 +22,8 @@ Conventions (right-trivialized): ``rplus(x, v) = x o exp(v)``,
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd
+
+from .._func import jacfwd
 
 
 class LieGroup:

@@ -18,7 +18,8 @@ import enum
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import hessian
+
+from ._func import hessian
 
 
 class NLP(NamedTuple):

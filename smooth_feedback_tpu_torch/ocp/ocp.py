@@ -17,8 +17,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import jacfwd
 
+from .._func import jacfwd
 from ..groups.base import LieGroup
 
 

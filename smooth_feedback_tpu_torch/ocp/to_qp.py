@@ -19,8 +19,9 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, vmap
+from torch.func import grad, vmap
 
+from .._func import hessian, jacfwd
 from .._precision import ieee_f32_matmul
 from ..qp.types import QPSolution, QuadraticProgram
 from .collocation.functions import mesh_interp

@@ -39,7 +39,7 @@ A third kernel has no Pallas counterpart:
 the plain version (:func:`admm_iterate_reference`,
 :func:`admm_solve_lane_reference`) on CPU tensors; nothing else chooses
 the plain version.  Each has a ``launches`` attribute that counts kernel
-launches.
+launches (under ``qp.solver._count_lock``: shards solve in threads).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .solver import (
-    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, QPFactors,
+    _DUAL_INF, _MAX_ITER, _OPTIMAL, _PRIMAL_INF, _RUNNING, _UNKNOWN, QPFactors, _count_lock,
     _inner_contiguous, _lane_chol_inverse, _lane_loop, _lane_scaling, _mtv, _mv, _norm_inf,
     _scaled_inputs,
 )
@@ -383,7 +383,8 @@ def admm_iterate_cuda_shared(
     if _device_type(qs) == "cpu":
         return admm_iterate_reference(prm, *args)
     outs = _launch("admm_shared_launch", prm.kernel_block, prm, args, B, n, m)
-    admm_iterate_cuda_shared.launches += 1
+    with _count_lock:
+        admm_iterate_cuda_shared.launches += 1
     return outs
 
 
@@ -404,7 +405,8 @@ def admm_iterate_cuda(
     if _device_type(qs) == "cpu":
         return admm_iterate_reference(prm, *args)
     outs = _launch("admm_problem_launch", PROBLEM_WARPS, prm, args, B, n, m)
-    admm_iterate_cuda.launches += 1
+    with _count_lock:
+        admm_iterate_cuda.launches += 1
     return outs
 
 
@@ -600,7 +602,8 @@ def admm_solve_cuda_lane(
         stream = torch.cuda.current_stream(A.device).cuda_stream
         out = _lane_call(_build.load(), prm, P, q, A, l, u, xw, yw, factors, scaled, clocks,
                          clock_member, stream)
-    admm_solve_cuda_lane.launches += 1
+    with _count_lock:
+        admm_solve_cuda_lane.launches += 1
     return out
 
 

@@ -42,6 +42,7 @@ Polish and the certificate run after the loop on every backend.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -580,7 +581,6 @@ def _ruiz_lane(Pt, qt, At, max_ruiz_iter: int = 10):
     B)``, ``(m, n, B)`` stacks; each member stops sweeping on its own.
     Returns ``(c, sx, sy, sweeps)``, ``sweeps`` (B,) the sweeps each member
     ran; every sweep of the loop counts one ``lane_ruiz_sweeps``."""
-    global lane_ruiz_sweeps
     dt, dev = Pt.dtype, Pt.device
     n, _, B = Pt.shape
     m = At.shape[0]
@@ -596,7 +596,7 @@ def _ruiz_lane(Pt, qt, At, max_ruiz_iter: int = 10):
     sweeps = torch.zeros((B,), dtype=torch.int32, device=dev)
     it = 0
     while it == 0 or (it <= max_ruiz_iter and bool((err > 0.1).any())):
-        lane_ruiz_sweeps += 1
+        _bump("lane_ruiz_sweeps")
         active = torch.ones_like(err, dtype=torch.bool) if it == 0 else err > 0.1
         Pn = (c[None, None, :] * sx[:, None, :] * sx[None, :, :] * Pt).abs()
         An = (sy[:, None, :] * At * sx[None, :, :]).abs()
@@ -907,6 +907,18 @@ def lane_kernel_args(
     return _lane_args(P, q, A, l, u, warmstart, factors)
 
 
+# this module's counters and the kernels' ``launches`` (qp/cuda_kernel.py)
+# are bumped under one lock: the shards of a sharded call (parallel/) solve
+# in threads of their own
+_count_lock = threading.Lock()
+
+
+def _bump(name):
+    """Add one to this module's counter ``name`` under ``_count_lock``."""
+    with _count_lock:
+        globals()[name] += 1
+
+
 # lane solves on CUDA tensors that ran the plain lane loop on the card
 # because the lane kernel cannot hold their shape (nothing launched)
 lane_fallthroughs = 0
@@ -922,7 +934,6 @@ def _solve_qp_batch_lane(prm, P, q, A, l, u, warmstart, factors):
     card: one ``lane_fallthroughs``).  With ``prm.polish`` the polish and
     the solution's assembly run after it, batch-leading, from the scaled
     iterates and scalings it returns."""
-    global lane_fallthroughs
     from .cuda_kernel import admm_solve_cuda_lane, admm_solve_lane_reference, lane_fits
 
     dt = A.dtype
@@ -935,7 +946,7 @@ def _solve_qp_batch_lane(prm, P, q, A, l, u, warmstart, factors):
                               for a in out))
     else:
         if A.device.type == "cuda":
-            lane_fallthroughs += 1
+            _bump("lane_fallthroughs")
         ws = (None, None) if warmstart is None else (warmstart.primal, warmstart.dual)
         out = admm_solve_lane_reference(prm, P, q, A, l, u, *ws, factors)
     if prm.polish:
@@ -955,7 +966,6 @@ shared_fallthroughs = 0
 
 
 def _solve_qp_batch_impl(qp, prm, warmstart, factors):
-    global shared_fallthroughs
     P, q, A, l, u, shared = _batch_view(qp, factors)
     if prm.adaptive_rho and (prm.backend == "cuda" or shared):
         raise ValueError(
@@ -986,7 +996,7 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
         # shape before anything launches
         if not shared_kernel_fits(A.shape[-1], A.shape[-2], prm.kernel_block):
             on_kernel = False
-            shared_fallthroughs += 1
+            _bump("shared_fallthroughs")
     if on_kernel:
         from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared
 

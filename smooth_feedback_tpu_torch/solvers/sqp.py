@@ -28,9 +28,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacrev, vmap
+from torch.func import grad, jacrev, vmap
 from torch.utils._pytree import tree_map
 
+from .._func import hessian
 from .._precision import ieee_f32_matmul
 from ..nlp import NLP, NLPSolution, NLPSolutionStatus
 from ..qp.solver import solve_qp_batch

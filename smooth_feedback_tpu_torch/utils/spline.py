@@ -21,8 +21,9 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import vmap
 
+from .._func import jacfwd
 from .._precision import ieee_f32_matmul
 from ..groups.base import LieGroup
 

@@ -795,3 +795,96 @@ def test_lane_kernel_clock_split(dev):
     assert all(v >= 0 for v in c) and c[0] > 0 and c[1] > 0 and c[2] > 0 and c[3] > 0
     assert c[6] + c[7] == int(k.iters[member])
     assert c[7] == int(n_checks(k.iters[member:member + 1].cpu(), prm.stop_check_iter)[0])
+
+
+def _sharded_lane_check(mesh, dev):
+    """The lane backend's (3, 24) family with adaptive rho through
+    _shard_map of solve_qp_batch: one admm_lane launch per shard, statuses,
+    iteration counts and primal bit-equal to one unsharded launch (a warp
+    owns a problem)."""
+    from smooth_feedback_tpu_torch.parallel.mesh_utils import _shard_map
+    from smooth_feedback_tpu_torch.qp import admm_solve_cuda_lane
+
+    prm = QPSolverParams(max_iter=4000, polish=False, adaptive_rho=True, backend="lane")
+    qp = qp_from_numpy(lane_family(3, 24, 256, 0.3, 5), device=dev, dtype=torch.float32)
+    admm_solve_cuda_lane.launches = 0
+    one = solve_qp_batch(qp, prm)
+    sharded = _shard_map(lambda q: solve_qp_batch(q, prm), mesh, (0,), 0)(qp)
+    torch.cuda.synchronize()
+    assert admm_solve_cuda_lane.launches == 1 + mesh.size
+    assert [p.device for p in sharded.primal.parts] == list(mesh.devices)
+    for name in ("status", "iters", "primal"):
+        assert torch.equal(getattr(sharded, name).gather(dev), getattr(one, name)), name
+
+
+def _sharded_fleet_check(mesh, dev, B=512, steps=3):
+    """The condensed main path (K = 50, bench.py's solver settings) at a
+    small B through make_sharded_fleet_step, one step built on each mesh
+    device, ``steps`` closed-loop steps from a warm start (one unsharded
+    step from the cold start first), the sharded warm start carried: one
+    admm_shared launch per shard per step; statuses equal to the unsharded
+    steps', iteration counts on at least 99 % of members (the transcription's
+    f32 products at another batch size may round a member's residual to the
+    other side of a check's threshold), u within chip_smoke's PRIMAL_TOL
+    where the counts agree."""
+    from chip_smoke import PRIMAL_TOL, make_main_path
+    from smooth_feedback_tpu_torch.parallel import (
+        make_sharded_fleet_step, shard_batch, shard_pytree,
+    )
+    from smooth_feedback_tpu_torch.parallel.mesh_utils import _shard_map
+
+    built = {}
+    for d in mesh.devices:
+        if d not in built:
+            built[d] = make_main_path("cuda", d)
+    step, ws0 = built[dev]
+    sharded_step = make_sharded_fleet_step([built[d][0].fleet_shared_t for d in mesh.devices],
+                                           mesh)
+    plant = lambda x, u: x + 0.05 * torch.stack([x[:, 1], u[:, 0]], dim=1)
+    move = _shard_map(plant, mesh, (0, 0), 0)
+    xs = torch.as_tensor(0.5 * np.random.default_rng(3).standard_normal((B, 2)),
+                         dtype=torch.float32, device=dev)
+    ws = type(ws0)(*(a.expand((B,) + a.shape).contiguous() for a in ws0))
+    r = step.fleet_shared_t(ws, 0.0, xs)
+    xs, ws = plant(xs, r.u), r.warmstart
+    xs_s, ws_s = shard_batch(xs, mesh), shard_pytree(ws, mesh)
+    for i in range(1, steps + 1):
+        r = step.fleet_shared_t(ws, 0.05 * i, xs)
+        admm_iterate_cuda_shared.launches = 0
+        rs = sharded_step(ws_s, 0.05 * i, xs_s)
+        torch.cuda.synchronize()
+        assert admm_iterate_cuda_shared.launches == mesh.size
+        assert torch.equal(rs.status.gather(dev), r.status)
+        same = rs.warmstart.iters.gather(dev) == r.warmstart.iters
+        assert float(same.float().mean()) >= 0.99
+        assert float((rs.u.gather(dev) - r.u).abs()[same].max()) <= PRIMAL_TOL
+        xs, ws = plant(xs, r.u), r.warmstart
+        xs_s, ws_s = move(xs_s, rs.u), rs.warmstart
+
+
+def test_sharded_lane_solve_on_one_card(dev):
+    """Four shards of a lane solve on one card, each on its own stream."""
+    from smooth_feedback_tpu_torch.parallel import dp_mesh
+
+    mesh = dp_mesh([dev] * 4)
+    assert len(set(mesh.streams)) == 4
+    _sharded_lane_check(mesh, dev)
+
+
+def test_sharded_fleet_step_on_one_card(dev):
+    """Four shards of the condensed fleet on one card, each on its own
+    stream."""
+    from smooth_feedback_tpu_torch.parallel import dp_mesh
+
+    _sharded_fleet_check(dp_mesh([dev] * 4), dev)
+
+
+def test_sharded_lane_and_fleet_on_two_cards(dev):
+    """One shard on each of two cards, the fleet step built on each."""
+    from smooth_feedback_tpu_torch.parallel import dp_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    mesh = dp_mesh([torch.device("cuda", 0), torch.device("cuda", 1)])
+    _sharded_lane_check(mesh, dev)
+    _sharded_fleet_check(mesh, dev)

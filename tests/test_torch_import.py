@@ -31,7 +31,7 @@ def test_port_imports_without_jax():
               "utils.compensated", "utils.bounds", "utils.linalg", "utils.spline", "nlp",
               "ocp.nlp", "ocp.flatten", "ocp.to_nlp", "ocp.solve", "ocp.collocation.functions",
               "solvers", "solvers.sqp", "compat", "compat.scipy_nlp", "compat.osqp_bridge",
-              "compat.ipopt_bridge", "utils.flops"):
+              "compat.ipopt_bridge", "utils.flops", "parallel", "parallel.mesh_utils"):
         assert f"smooth_feedback_tpu_torch.{m}" in mods
     assert len([m for m in mods if m.startswith("examples_torch.")]) >= 13
     code = (
@@ -40,6 +40,7 @@ def test_port_imports_without_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "assert 'smooth_feedback_tpu' not in sys.modules\n"
         "from smooth_feedback_tpu_torch import _build\n"
         "assert _build._lib is None\n"
         "print('ok')\n"

@@ -249,22 +249,33 @@ def _flat_bundle_ocps():
     return j_flatten(ocp_j, xj, uj), t_flatten(ocp_t, xt, ut)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_sweep_derivatives():
+    """The JAX package's f, g, gradient, constraint Jacobian and Lagrangian
+    Hessian of the sweep's NLP, one program for every member (the velocity
+    is an argument)."""
+    mesh = JMesh.uniform(*MESH)
+
+    @jax.jit
+    def jax_side(vel, x, lam):
+        nj = oj.make_flat_nlp(mesh, vel)
+        h = jax.hessian(lambda xx: nj.f(xx) + lam @ nj.g(xx))(x)
+        return nj.f(x), nj.g(x), jax.grad(nj.f)(x), jax.jacrev(nj.g)(x), h
+
+    return jax_side
+
+
 @pytest.mark.parametrize("k", [0, 3])
 def test_sweep_nlp_derivatives_match_jax(k):
     """f, g, the gradient, the constraint Jacobian and the Lagrangian
     Hessian of the sweep's NLP at a random point and multipliers."""
-    nj, nt = _sweep_nlps(k)
+    _, nt = _sweep_nlps(k)
     z, lam = _point(nt, k)
     zt, lt = _t(z), _t(lam)
-
-    @jax.jit
-    def jax_side(x, lam):
-        h = jax.hessian(lambda xx: nj.f(xx) + lam @ nj.g(xx))(x)
-        return nj.f(x), nj.g(x), jax.grad(nj.f)(x), jax.jacrev(nj.g)(x), h
-
+    vel = jnp.asarray(cs.ocp_sweep_velocities(4)[k])
     torch_side = (nt.f(zt), nt.g(zt), grad(nt.f)(zt), jacrev(nt.g)(zt),
                   hessian(lambda x: nt.f(x) + lt @ nt.g(x))(zt))
-    for a, b in zip(jax_side(jnp.asarray(z), jnp.asarray(lam)), torch_side):
+    for a, b in zip(_jax_sweep_derivatives()(vel, jnp.asarray(z), jnp.asarray(lam)), torch_side):
         _close(a, b)
 
 

@@ -206,6 +206,14 @@ def _member(sol, i):
     return NLPSolution(*(a[i] for a in sol))
 
 
+@functools.lru_cache(maxsize=None)
+def _port_batch():
+    """The port's fleet driver on the same family, which
+    test_solve_ocp_flat_batch_matches_jax holds to the JAX package's."""
+    return solve_ocp_flat_batch(lambda p: _di(torch, p), np.asarray(P0S), _mesh(torch),
+                                _params(torch), **F64)
+
+
 def test_solve_ocp_flat_batch_matches_jax():
     """The fleet driver on the double-integrator family (B = 3), two
     passes: the same meshes, per-pass SQP iterations and rescued counts,
@@ -214,8 +222,7 @@ def test_solve_ocp_flat_batch_matches_jax():
     meets its boundary conditions."""
     jsol, jmesh, jinfo = _jax_batch()
     make_flat = lambda p: _di(torch, p)
-    sol, mesh, info = solve_ocp_flat_batch(make_flat, np.asarray(P0S), _mesh(torch),
-                                           _params(torch), **F64)
+    sol, mesh, info = _port_batch()
     assert len(info.meshes) == 2
     assert _meshes(info.meshes) == _meshes(jinfo.meshes) and mesh.intervals == jmesh.intervals
     for it, jit in zip(info.nlp_iters, jinfo.nlp_iters):
@@ -236,10 +243,12 @@ def test_solve_ocp_flat_batch_rescue_and_chunking(monkeypatch):
     """tests/test_ocp_nlp.py::test_solve_ocp_flat_batch_rescue_and_chunking
     on the port: SQP iterations capped at STARVE leave a member
     non-Optimal, the driver's rescue re-solves it (rescued[0] >= 1) and the
-    fleet ends all Optimal on the JAX un-starved run's meshes, within 1e-6
-    of its x; with chunk_size 2 the second pass is sorted by the first
-    pass's qp_iters (the sort key handed to solve_nlp_sqp_batch)."""
-    jsol, jmesh, jinfo = _jax_batch()
+    fleet ends all Optimal on the un-starved run's meshes, within 1e-6 of
+    its x (the port's un-starved run, the JAX package's within 1e-8:
+    test_solve_ocp_flat_batch_matches_jax); with chunk_size 2 the second
+    pass is sorted by the first pass's qp_iters (the sort key handed to
+    solve_nlp_sqp_batch)."""
+    jsol, jmesh, jinfo = _port_batch()
     keys = []
     inner = t_solve_module.solve_nlp_sqp_batch
 
@@ -256,7 +265,7 @@ def test_solve_ocp_flat_batch_rescue_and_chunking(monkeypatch):
     assert info.rescued[0] >= 1
     assert bool((info.statuses == OPTIMAL).all())
     assert _meshes(info.meshes) == _meshes(jinfo.meshes)
-    np.testing.assert_allclose(sol.x.numpy(), np.asarray(jsol.x), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(sol.x.numpy(), jsol.x.numpy(), atol=1e-6, rtol=0)
     # pass 0 in the identity order, pass 1 by pass 0's qp_iters, which the
     # rescue raised for the members it re-solved
     assert len(keys) == 4 and not bool(keys[0].any())
