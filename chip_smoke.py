@@ -6,7 +6,13 @@ kernels:
 
 - the condensed double-integrator MPC fleet (K=50 horizon, n = m = 52 QP,
   B = 8192 controllers on one clock, float32, the bench.py configuration)
-  through the shared-matrix kernel (csrc/admm_shared.cu);
+  through the shared-matrix kernel (csrc/admm_shared.cu, its resident
+  route);
+- bench.py --sweep's other fleets of that controller: K = 50 sparse (n = m
+  = 158, B = 8192), K = 100 condensed (100) and sparse (302) at B = 4096,
+  K = 200 condensed (200) and sparse (602) at B = 2048, all but K = 100
+  condensed through the shared kernel's streaming route
+  (csrc/admm_shared_stream.cu);
 - the README Quickstart's SE(2) vehicle fleet on per-member clocks (K=30,
   n = 163, m = 99 sparse QP, B = 1024, float32, every member transcribed and
   factorized on its own) through the per-problem kernel
@@ -69,7 +75,12 @@ Phases:
      plain version), and on the lane phase's shapes;
   4. each path: closed-loop fleet steps with every launch count set to 0
      just before and read just after, step time, the Optimal share, and the
-     first steps again on the plain path;
+     first steps again on the plain path; sweep-shapes: each of bench.py
+     --sweep's five other fleets, one cold and 10 warm steps, one
+     admm_shared launch a step and no fall-through, the kernel against its
+     plain version on the first warm step's QPs (and over fixed iterations
+     at (158, 158) and (602, 602)), its times beside the torch shared
+     loop's;
   5. ekf-fleet: the three layouts held against each other and against the
      CPU float64 port, rates over 100 chained steps, a step split, the
      square-root P checked PSD, the batched library calls timed against
@@ -77,8 +88,9 @@ Phases:
      true state, the estimation error, one admm_problem launch per QP, a
      step split, the first steps again on the torch loop, the kernel held
      against its plain version at the loop's two shapes; pid-spline;
-     shared-route: shared factors past the shared kernel's shapes take the
-     torch shared loop on the card, nothing launched; ocp-sweep: the
+     shared-route: shared factors past the JAX package's
+     shared_kernel_fits (n = m = 1792) take the torch shared loop on the
+     card, nothing launched; ocp-sweep: the
      Optimal share after rescue against the JAX package's on the same
      velocities, every Optimal member's KKT residual recomputed in float64,
      one admm_problem launch per lockstep iteration, sweep and rescue
@@ -234,8 +246,18 @@ OCP_REFINED_QP_SHAPE = (147, 294)
 OCP_QP_IVALS = 10
 OCP_QP_EPS = 1e-3
 # step 0: a shared-factor batch past the shared kernel's shapes
-SHARED_ROUTE_N = 160
-SHARED_ROUTE_B = 4
+SHARED_ROUTE_N = 1792  # past the JAX package's shared_kernel_fits (1664 is the last it admits)
+SHARED_ROUTE_B = 2
+# sweep-shapes: bench.py --sweep's fleet configs (bench.py:247-256) that the
+# resident route of the shared kernel does not take, and K = 100 condensed,
+# which it takes and the card had not run; (K, B, condense), at bench.py's
+# own B.  The QP has n = m = 3 N + 2 sparse and N condensed, N the mesh's
+# collocation points (52 at K = 50, K at 100 and 200): 158, 100, 302, 200
+# and 602 in this order.
+SWEEP_CONFIGS = ((50, 8192, False), (100, 4096, True), (100, 4096, False), (200, 2048, True),
+                 (200, 2048, False))
+SWEEP_WARM = 10  # warm closed-loop steps after the cold one
+SWEEP_FIXED = ((158, 158), (602, 602))  # shapes also held over fixed iterations
 
 
 def ocp_sweep_velocities(B_=OCP_B, seed=SEED):
@@ -377,6 +399,20 @@ def layout_phase():
                         f"shared memory a block")
         require(tuple(out) == ck.shared_plan(b, 52, 52, block),
                 "shared_plan does not mirror the library")
+    # the streaming route at the sweep's shapes and at the edges of the JAX
+    # package's gate (1664 square, m = 9856 at n = 128), its scratch too
+    for b, n, m in [(8192, 158, 158), (4096, 308, 308), (2048, 202, 202), (2048, 608, 608),
+                    (8, 1664, 1664), (4, 128, 9856)]:
+        out = (ctypes.c_int * 4)()
+        require(lib.admm_shared_stream_plan(b, n, m, out) == 0,
+                f"admm_shared_stream_plan refused ({n}, {m})")
+        require(ck.shared_route(n, m, block) == "streaming" and tuple(out) == ck.shared_plan(b, n, m, block),
+                "shared_plan does not mirror the streaming route's library")
+        require(lib.admm_shared_stream_scratch(b, n, m) == ck.shared_stream_scratch(b, n, m),
+                "shared_stream_scratch does not mirror the library")
+        phase("layout", f"admm_shared (streaming) at B={b}, n={n}, m={m}: {out[0]} problems a "
+                        f"block in lockstep, {out[2]} warps, {out[3]} bytes of shared memory a "
+                        f"block, {ck.shared_stream_scratch(b, n, m) * 4} bytes of scratch")
     smem = ctypes.c_int(0)
     resident = lib.admm_problem_route(163, 99, ck.PROBLEM_WARPS, ctypes.byref(smem))
     route = "resident" if resident else "streaming"
@@ -412,8 +448,9 @@ def layout_phase():
             f"n = m = {n} fits the lane kernel")
 
 
-def make_main_path(backend, dev):
-    """bench.py's configuration, rewritten in torch."""
+def make_main_path(backend, dev, K_=K, condense=True):
+    """bench.py's configuration (``run_config``, bench.py:47-130), rewritten
+    in torch: the K = 50 condensed fleet by default."""
     from smooth_feedback_tpu_torch.controllers import MPCParams, MPCWeights, make_mpc_step
     from smooth_feedback_tpu_torch.groups import Rn
 
@@ -427,20 +464,21 @@ def make_main_path(backend, dev):
         weights=MPCWeights(Q=torch.eye(2, **kw), Qtf=0.1 * torch.eye(2, **kw),
                            R=0.1 * torch.eye(1, **kw)),
         params=MPCParams(
-            K=K, tf=5.0, return_trajectories=False,
-            qp=qp_params(backend),
+            K=K_, tf=5.0, return_trajectories=False,
+            qp=qp_params(backend, K_),
         ),
         cr=lambda x, u: u, crl=[-0.5], cru=[0.5],
-        dtype=dt, device=dev, reuse_factors=True, condense=True,
+        dtype=dt, device=dev, reuse_factors=True, condense=condense,
     )
 
 
-def qp_params(backend):
-    """bench.py's solver settings (bench.py:75-93) on a port backend."""
+def qp_params(backend, K_=K):
+    """bench.py's solver settings (bench.py:75-93) on a port backend:
+    max_iter 100 at K <= 50, 200 above."""
     from smooth_feedback_tpu_torch.qp import QPSolverParams
 
     return QPSolverParams(scaling=True, polish=False, rho=2.0, rho_eq_scale=15.0,
-                          max_iter=100, stop_check_iter=10, backend=backend)
+                          max_iter=100 if K_ <= 50 else 200, stop_check_iter=10, backend=backend)
 
 
 def initial_states(dev):
@@ -642,7 +680,7 @@ def fixed_iteration_check(wrapper, args, qprm, start="cold inputs", iters=FIXED_
 
 
 def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_iters=False,
-                       noisy=False, k=None, r=None):
+                       noisy=False, k=None, r=None, either=False):
     """One solve through the kernel against the plain version in f32 and in
     f64 on the same inputs: statuses, iteration counts, the unscaled primal
     where the counts agree, and every point the kernel calls Optimal
@@ -654,12 +692,21 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
     converge near max_iter, where float32 rounding decides a member's
     status and count (the OCP sweep's subproblems): the kernel's statuses
     and counts must then match the f64 run's in as many members as the f32
-    plain version's do, less max(1, B / 32) members.  ``min_optimal`` also
+    plain version's do, less max(1, B / 32) members.  ``either`` is for sums
+    so long that the f32 plain version's own rounding (cuBLAS's order over
+    up to 600 terms) decides statuses the f64 run does not share: a
+    member's status must then equal the f32 plain version's or the f64
+    run's, on 99.9 % of members; where the f64 run itself ends at least
+    0.1 % of members at max_iter, rounding decides which of the members
+    converging near max_iter stop in time, and the kernel's statuses must
+    instead differ from the f64 run's on no more members than twice its
+    MaxIterations share and equal them on as many members as the f32 plain
+    version's do, less max(1, B / 32).  ``min_optimal`` also
     requires that Optimal share from both versions alike; ``exact_iters``
     every count equal.  ``k`` and ``r`` are the kernel's and the f32 plain
     version's outputs where already computed.  Returns the primal error
     where counts agree and the kernel's outputs."""
-    from smooth_feedback_tpu_torch.qp import admm_iterate_reference
+    from smooth_feedback_tpu_torch.qp import QPSolutionStatus, admm_iterate_reference
 
     k = wrapper(prm, *args) if k is None else k
     r = admm_iterate_reference(prm, *args) if r is None else r
@@ -667,6 +714,7 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
     torch.cuda.synchronize()
     share = lambda mask: float(mask.float().mean())
     agree = share(k[3] == r[3])
+    agree_either, agree_d = share((k[3] == r[3]) | (k[3] == d[3])), share(k[3] == d[3])
     k_opt, r_opt, d_opt = (share(o[3] == 0) for o in (k, r, d))
     eq_it = share(k[4] == r[4])
     eq_kd, eq_rd = share(k[4] == d[4]), share(r[4] == d[4])
@@ -678,7 +726,8 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
     err_all = float(dx[both].max()) if bool(both.any()) else float("inf")
     slack = residual_slack(qps, args, k, prm)
     not_opt = lambda o: torch.nonzero(o[3] != 0).flatten().tolist()
-    phase("kernel", f"{name}: status agreement {agree * 100:.3f}%, Optimal kernel "
+    phase("kernel", f"{name}: status agreement {agree * 100:.3f}% (with the f64 run "
+                    f"{agree_d * 100:.3f}%, with either {agree_either * 100:.3f}%), Optimal kernel "
                     f"{k_opt * 100:.3f}% plain {r_opt * 100:.3f}% plain-f64 "
                     f"{d_opt * 100:.3f}%, equal iters kernel/plain {eq_it * 100:.3f}% "
                     f"kernel/plain-f64 {eq_kd * 100:.3f}% plain/plain-f64 "
@@ -698,6 +747,19 @@ def compare_with_plain(name, wrapper, prm, args, qps, min_optimal=None, exact_it
                         f"{n_sr}), counts in {n_kd} ({n_rd}); allowance {allow}")
         require(n_sk >= n_sr - allow, f"{name}: statuses match the f64 run's in {n_sk} members, "
                                       f"the f32 plain version's in {n_sr}")
+    elif either:
+        d_maxit = share(d[3] == int(QPSolutionStatus.MaxIterations))
+        if d_maxit < 0.001:
+            require(agree_either >= 0.999, f"{name}: kernel status equal to the f32 plain "
+                                           f"version's or the f64 run's on {agree_either:.5f} < 0.999")
+        else:
+            phase("kernel", f"{name}: the f64 run ends {d_maxit * 100:.3f}% of members at max_iter: "
+                            f"statuses equal to the f64 run's in {n_sk} members (f32 plain {n_sr}), "
+                            f"allowance {allow}; differing on {(1 - agree_d) * 100:.3f}% (bound "
+                            f"{2 * d_maxit * 100:.3f}%)")
+            require(1 - agree_d <= 2 * d_maxit and n_sk >= n_sr - allow,
+                    f"{name}: statuses differ from the f64 run's on {1 - agree_d:.5f} of members "
+                    f"(f64 at max_iter {d_maxit:.5f}); equal in {n_sk}, f32 plain {n_sr}")
     else:
         require(agree >= 0.999, f"{name}: kernel/plain status agreement {agree:.5f} < 0.999")
     if min_optimal is not None:
@@ -2849,6 +2911,144 @@ def ocp_qp_phase(dev):
     return counts, (n, m), max(worst, err)
 
 
+def capture_solves(steps_fn):
+    """Run ``steps_fn()`` with every ``solve_qp_batch`` the MPC steps call
+    recorded: returns its result and the list of ``(qp, prm, warmstart,
+    factors)``."""
+    from smooth_feedback_tpu_torch.controllers import mpc
+
+    solves, real = [], mpc.solve_qp_batch
+
+    def spy(qp, prm, warmstart=None, factors=None):
+        solves.append((qp, prm, warmstart, factors))
+        return real(qp, prm, warmstart, factors)
+
+    mpc.solve_qp_batch = spy
+    try:
+        return steps_fn(), solves
+    finally:
+        mpc.solve_qp_batch = real
+
+
+def sweep_config_phase(K_, B_, condense, dev):
+    """One of bench.py --sweep's fleet configs on the card: make_mpc_step
+    with reuse_factors (the shared factors of the template QP), one cold
+    step and SWEEP_WARM warm closed-loop steps of fleet_shared_t, u driving
+    the plant, with every launch count and the fall-throughs set to 0 just
+    before and read just after (one admm_shared launch a step, none
+    falling through).  Then the kernel against its plain version on the
+    first warm step's QPs (compare_with_plain; at SWEEP_FIXED also fixed
+    iterations), its time warm and cold beside the plain version's, the
+    bound and the torch shared loop's solve (the route these shapes took
+    before the streaming route).  Returns ``(launches, worst error,
+    row)``."""
+    from smooth_feedback_tpu_torch.qp import (
+        admm_iterate_cuda_shared, admm_iterate_reference, shared_kernel_args, solve_qp_batch,
+    )
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck, solver as qsolver
+
+    label = f"K={K_} {'condensed' if condense else 'sparse'} B={B_}"
+    t0 = time.perf_counter()
+    step, ws0 = make_main_path("cuda", dev, K_, condense)
+    t_build = time.perf_counter() - t0
+    xs = torch.as_tensor(0.5 * np.random.default_rng(SEED).standard_normal((B_, 2)),
+                         dtype=torch.float32, device=dev)
+    ws = type(ws0)(*(a.expand((B_,) + a.shape).contiguous() for a in ws0))
+    prm = qp_params("cuda", K_)
+
+    def run():
+        nonlocal xs, ws
+        opt, its, step_s, us = [], [], [], []
+        for i in range(1 + SWEEP_WARM):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = step.fleet_shared_t(ws, DT * i, xs)
+            xs = xs + DT * torch.stack([xs[:, 1], r.u[:, 0]], dim=1)
+            ws = r.warmstart
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            opt.append(float((r.status == 0).float().mean()))
+            its.append(ws.iters)
+            us.append(r.u)
+        return opt, its, step_s, torch.stack(us)
+
+    fall0 = qsolver.shared_fallthroughs
+    reset_counts()
+    (opt, its, step_s, u), solves = capture_solves(run)
+    counts, falls = read_counts(), qsolver.shared_fallthroughs - fall0
+    qp, _, _, f = solves[1]
+    n, m = f.Minv.shape[0], f.As.shape[0]
+    route = ck.shared_route(n, m, prm.kernel_block)
+    med = float(np.median(step_s[1:]))
+    phase("sweep-shapes", f"{label}: QP n={n} m={m}, route {route}, make_mpc_step "
+                          f"{t_build:.3f} s; launches {counts}, fall-throughs {falls} in "
+                          f"{1 + SWEEP_WARM} steps; Optimal a step (cold first) "
+                          f"{[round(o * 100, 3) for o in opt]}% (bench.py's gate 99.9%); iters "
+                          f"p50 {[round(pct(i, 50)) for i in its]} max "
+                          f"{[int(i.max()) for i in its]}; cold step {step_s[0] * 1e3:.3f} ms, "
+                          f"median warm step {med * 1e3:.3f} ms, {B_ / med:.1f} solves/s")
+    require(counts == {"admm_shared": 1 + SWEEP_WARM, "admm_problem": 0, "admm_lane": 0},
+            f"{label}: {counts} launches in {1 + SWEEP_WARM} steps, expected one admm_shared a step")
+    require(falls == 0, f"{label}: {falls} shared-loop fall-throughs")
+    require(route == ("resident" if max(n, m) <= ck.MAX_DIM else "streaming"),
+            f"{label}: route {route}")
+    require(bool(torch.isfinite(u).all()), f"{label}: non-finite u")
+    require(tuple(u.shape) == (1 + SWEEP_WARM, B_, 1), f"{label}: u has shape {tuple(u.shape)}")
+
+    # the kernel against its plain version on the first warm step's QPs
+    qp, prm_w, ws_w, f = solves[1]
+    warm = shared_kernel_args(qp, f, ws_w)
+    worst = 0.0
+    if (n, m) in SWEEP_FIXED:
+        worst = fixed_iteration_check(admm_iterate_cuda_shared, warm, prm_w,
+                                      start=f"{label}, the first warm step's inputs")
+    err, k = compare_with_plain(f"sweep {label} warm", admm_iterate_cuda_shared, prm_w, warm, qp,
+                                either=True)
+    worst = max(worst, err)
+    qc, prm_c, ws_c, fc = solves[0]
+    cold = shared_kernel_args(qc, fc, ws_c)
+    kc = admm_iterate_cuda_shared(prm_c, *cold)
+    torch.cuda.synchronize()
+    prm_t = dataclasses.replace(prm_w, backend="torch")
+    row = dict(
+        config=label, B=B_, n=n, m=m, route=route,
+        ms=time_ms(lambda: admm_iterate_cuda_shared(prm_w, *warm), 5),
+        single_ms=time_single_ms(lambda: admm_iterate_cuda_shared(prm_w, *warm), 5),
+        cold_ms=time_ms(lambda: admm_iterate_cuda_shared(prm_c, *cold), 3),
+        cold_single_ms=time_single_ms(lambda: admm_iterate_cuda_shared(prm_c, *cold), 3),
+        plain_ms=time_ms(lambda: admm_iterate_reference(prm_w, *warm), 2),
+        solve_ms=time_ms(lambda: solve_qp_batch(qp, prm_w, ws_w, f), 3),
+        torch_loop_ms=time_ms(lambda: solve_qp_batch(qp, prm_t, ws_w, f), 2),
+        mean_iters=float(k[4].float().mean()), cold_mean_iters=float(kc[4].float().mean()),
+        step_ms=med * 1e3, cold_step_ms=step_s[0] * 1e3, max_abs_err=worst,
+    )
+    row["bound_ms"], row["bound_by"] = bound(warm, k, prm_w)
+    row["cold_bound_ms"], _ = bound(cold, kc, prm_c)
+    phase("kernel", f"sweep {label} ({n}, {m}), {route} route: warm solve kernel "
+                    f"{row['ms']:.4f} ms (mean of back-to-back calls; median of single launches "
+                    f"{row['single_ms']:.4f} ms, {row['mean_iters']:.2f} mean iters), plain "
+                    f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                    f"cold solve kernel {row['cold_ms']:.4f} ms (single {row['cold_single_ms']:.4f} "
+                    f"ms, {row['cold_mean_iters']:.2f} mean iters), bound "
+                    f"{row['cold_bound_ms']:.4f} ms; the warm solve_qp_batch on backend cuda "
+                    f"{row['solve_ms']:.4f} ms, on the torch shared loop {row['torch_loop_ms']:.4f} ms")
+    return counts["admm_shared"], worst, row
+
+
+def sweep_shapes_phase(dev):
+    """bench.py --sweep's long-horizon and sparse fleet configs
+    (SWEEP_CONFIGS), each through sweep_config_phase.  Returns the
+    admm_shared launches of all their steps, the worst error and each
+    config's row."""
+    launches, worst, rows = 0, 0.0, []
+    for K_, B_, condense in SWEEP_CONFIGS:
+        c, e, row = sweep_config_phase(K_, B_, condense, dev)
+        launches += c
+        worst = max(worst, e)
+        rows.append(row)
+    return launches, worst, rows
+
+
 def shared_route_problem(n=SHARED_ROUTE_N, B_=SHARED_ROUTE_B, seed=SEED):
     """numpy ``(P, q, A, l, u)`` of a shared-factor batch (P and A with a
     leading axis of 1): P = M M'/n + I, A ~ N(0, 1/n), per-member q ~ N(0, 1)
@@ -2863,7 +3063,8 @@ def shared_route_problem(n=SHARED_ROUTE_N, B_=SHARED_ROUTE_B, seed=SEED):
 
 
 def shared_route_phase(dev):
-    """Shared factors at n = m = 160, past the shared kernel's shapes: on
+    """Shared factors at n = m = 1792, past the JAX package's
+    shared_kernel_fits and so past both routes of the shared kernel: on
     backend "cuda" the torch shared loop runs on the card, nothing is
     launched, and statuses and iteration counts equal backend "torch"'s."""
     from smooth_feedback_tpu_torch.convert import qp_from_numpy
@@ -3898,6 +4099,9 @@ def main():
     err = reference_phase(dev, main_kept)
     rows["admm_shared"] = (max(rows["admm_shared"][0], err), rows["admm_shared"][1])
     launches = {"admm_shared": counts["admm_shared"]}
+    sweep_launches, worst_w, sweep_rows = sweep_shapes_phase(dev)
+    rows["admm_shared"] = (max(rows["admm_shared"][0], worst_w), rows["admm_shared"][1])
+    mark("sweep-shapes (bench.py --sweep's fleets)")
     counts, kept = fleet_phase(fleet, fws0, dev)
     err = fleet_plain_phase(dev, kept)
     rows["admm_problem"] = (max(rows["admm_problem"][0], err), rows["admm_problem"][1])
@@ -3974,6 +4178,7 @@ def main():
 
     by_path = {
         "admm_shared": {"condensed": launches["admm_shared"],
+                        "sweep-shapes": sweep_launches,
                         "vehicle-asif": vcounts["admm_shared"],
                         "parallel": plaunches["admm_shared"]},
         "admm_problem": {"per-member fleet": launches["admm_problem"],
@@ -3988,7 +4193,9 @@ def main():
         by_path[name].update({f"examples/{ex}": c[name] for ex, c in xcounts.items() if c[name]})
     shapes = {
         "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64",
-                        f"B={B // pn} n=m=52 (parallel, {pn} shards)"],
+                        f"B={B // pn} n=m=52 (parallel, {pn} shards)"]
+                       + [f"B={r['B']} n={r['n']} m={r['m']} (sweep-shapes, {r['route']} route)"
+                          for r in sweep_rows],
         "admm_problem": [f"B={FLEET_B} n=163 m=99", f"B={ASIF_B} n=3 m=53"]
                         + [f"B=1 (n, m)={k}" for k in orows]
                         + [f"B={OCP_B} n={OCP_QP_SHAPE[0]} m={OCP_QP_SHAPE[1]}",
@@ -4021,6 +4228,10 @@ def main():
                               "single_ms": r[4],
                               "max_abs_err": e} for ex, e, r, (b, n, m) in xfound[name]],
         })
+        if name == "admm_shared":
+            # bench.py --sweep's fleets: the first warm step's solve and the
+            # cold one, with the torch shared loop's warm solve beside them
+            kernels[-1]["sweep_rows"] = sweep_rows
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,26 @@
 
 Two kernels, one per TPU kernel of ``smooth_feedback_tpu/qp/pallas_kernel.py``:
 
-- ``csrc/admm_shared.cu`` replaces ``_admm_kernel_shared`` (called through
-  ``admm_iterate_pallas_shared``): every problem of the batch shares the
-  scaled ``Minv``, ``As`` and ``Ps``; each has its own vectors and warm start.
-  On an H100 it is bound by the 128 bytes a clock that an SM's shared
+- ``csrc/admm_shared.cu`` and ``csrc/admm_shared_stream.cu`` replace
+  ``_admm_kernel_shared`` (called through ``admm_iterate_pallas_shared``):
+  every problem of the batch shares the scaled ``Minv``, ``As`` and ``Ps``;
+  each has its own vectors and warm start.  Two routes, one wrapper
+  (:func:`shared_route` decides by shape, over every shape the JAX
+  package's ``shared_kernel_fits`` admits).  The resident route
+  (max(n, m) <= 128) is bound by the 128 bytes a clock that an SM's shared
   memory delivers to the registers, not by HBM: the three shared matrices
   stay resident in shared memory for the whole solve and every problem's
   vectors stay in registers.  A warp advances a group of 2 problems in
   lockstep (the TPU kernel's GEMM form, with per-member freeze masks), so
   one matrix entry read from shared memory feeds a whole group's FMAs; fp32
   FMAs, and an odd row stride so row and column reads are free of bank
-  conflicts.  :func:`shared_plan` mirrors how a launch lays a batch out.
+  conflicts.  The streaming route (the larger shapes, whose matrices no
+  block can hold) keeps the matrices in device memory, where the L2 holds
+  them: a block advances up to 16 problems in lockstep and reads each
+  matrix once an iteration for all of them, its threads owning output
+  columns (of half its problems each where max(n, m) <= 512), the
+  problems' inputs staged in shared memory.
+  :func:`shared_plan` mirrors how a launch lays a batch out on either route.
 - ``csrc/admm_problem.cu`` replaces ``_admm_kernel`` (called through
   ``admm_iterate_pallas``): every problem carries its own ``Minv``, ``As``,
   ``Ps``, ``rho``, ``sx``, ``sy`` and ``c``.  Its bound is device memory
@@ -58,9 +67,13 @@ from .types import QPSolverParams
 
 # what one block may hold on an H100 (232,448 bytes of shared memory)
 SMEM_LIMIT = 232448
-MAX_DIM = 128  # shared kernel: entries per lane are instantiated up to 4 (K <= 4)
-MAX_BLOCK = 8  # shared kernel: problems per block (a group for each of its warps)
-MAX_WARPS = 8  # shared kernel: warps per block (__launch_bounds__(256))
+MAX_DIM = 128  # shared kernel, resident route: entries per lane instantiated up to 4 (K <= 4)
+MAX_BLOCK = 8  # shared kernel, resident route: problems per block (a group for each warp)
+MAX_WARPS = 8  # shared kernel, resident route: warps per block (__launch_bounds__(256))
+STREAM_GROUPS = (16, 8, 4, 2)  # shared kernel, streaming route: problems a block, widest first
+STREAM_MAX_WARPS = 16  # ... warps a block (__launch_bounds__(512))
+STREAM_COLS = 2  # ... output columns a thread owns in one pass
+STREAM_NQ = 16  # ... per-problem quantities a check reduces over the block
 SMS = 132  # streaming multiprocessors of an H100, four warp schedulers each
 PROBLEM_WARPS = 16  # per-problem kernel: warps per block, one block per problem
 PROBLEM_STATIC_SMEM = 4 * 10 * 16  # its block-reduction scratch
@@ -188,11 +201,11 @@ def _block_group(block: int) -> int:
     return 2 if block >= 2 else 1
 
 
-def smem_bytes(n: int, m: int, block: int) -> int:
-    """Dynamic shared memory one block of the shared kernel needs for blocks
-    of ``block`` problems (mirrors the C function in csrc/admm_shared.cu):
-    three matrices at an odd row stride and 64 K floats of staging for each
-    problem of a block (whole groups)."""
+def _resident_smem_bytes(n: int, m: int, block: int) -> int:
+    """Dynamic shared memory one block of the resident route needs for
+    blocks of ``block`` problems (mirrors ``smem_bytes`` in
+    csrc/admm_shared.cu): three matrices at an odd row stride and 64 K
+    floats of staging for each problem of a block (whole groups)."""
     ld = n | 1
     K = (max(n, m) + 31) // 32
     P = _block_group(block)
@@ -200,31 +213,124 @@ def smem_bytes(n: int, m: int, block: int) -> int:
     return 4 * (_round4(ld * (2 * n + m)) + 64 * K * slots)
 
 
-def shared_kernel_fits(n: int, m: int, block: int) -> bool:
-    """Whether the shared kernel holds a problem of ``(n, m)`` in blocks of
-    ``block`` problems: max(n, m) <= ``MAX_DIM`` and the block's matrices
-    and staging within ``SMEM_LIMIT`` (the counterpart of the JAX package's
-    ``shared_kernel_fits``).  ``solve_qp_batch`` routes a shared-factor
-    batch that does not fit to the torch shared loop.  Raises for a
-    ``block`` outside 1..``MAX_BLOCK``."""
+def _stream_smem_bytes(n: int, m: int, G: int) -> int:
+    """Dynamic shared memory one block of the streaming route needs for ``G``
+    problems (mirrors ``stream_smem`` in csrc/admm_shared_stream.cu): two
+    staging buffers of max(n, m) rows of G floats, the check's per-warp
+    partials, nine per-problem scalars."""
+    return 4 * (2 * max(n, m) * G + STREAM_NQ * STREAM_MAX_WARPS * G + 9 * G)
+
+
+def _stream_parts(G: int, D: int) -> int:
+    """Parts a streaming block's threads form at a widest vector of ``D``
+    (mirrors ``parts`` in csrc/admm_shared_stream.cu): two (each owning G /
+    2 of the block's problems) where G >= 8 and a part of at most half the
+    warps covers D in one pass, else one."""
+    half = 32 * (STREAM_MAX_WARPS // 2)
+    return 2 if G >= 8 and -(-D // STREAM_COLS) <= half else 1
+
+
+def _stream_group(n: int, m: int) -> int:
+    """Problems a block of the streaming route advances together: the widest
+    of ``STREAM_GROUPS`` whose block fits ``SMEM_LIMIT``, 0 where none does."""
+    return next((G for G in STREAM_GROUPS if _stream_smem_bytes(n, m, G) <= SMEM_LIMIT), 0)
+
+
+# The JAX package's gate for its fused shared-matrix kernel
+# (smooth_feedback_tpu/qp/pallas_kernel.py: shared_kernel_fits and the
+# constants and footprint estimates it reads), copied: a TPU's VMEM budget
+# decides which shapes the kernel takes, and the port takes the same ones.
+_VMEM_RAISED = 100 * 2**20
+_FOOTPRINT_FUDGE = 2.0
+
+
+def _pad128(v: int) -> int:
+    return -(-max(v, 128) // 128) * 128
+
+
+def _shared_static_bytes(n_pad: int, m_pad: int) -> int:
+    return 4 * (2 * n_pad * n_pad + m_pad * n_pad) + (1 << 20)
+
+
+def _shared_per_problem_bytes(n_pad: int, m_pad: int) -> int:
+    return 18 * 4 * (n_pad + m_pad)
+
+
+def _jax_shared_kernel_fits(n: int, m: int) -> bool:
+    n_pad, m_pad = _pad128(n), _pad128(m)
+    est = _shared_static_bytes(n_pad, m_pad) + 64 * _shared_per_problem_bytes(n_pad, m_pad)
+    return est * _FOOTPRINT_FUDGE <= _VMEM_RAISED
+
+
+def shared_route(n: int, m: int, block: int) -> Optional[str]:
+    """The route the shared kernel takes at ``(n, m)`` in blocks of
+    ``block`` problems: ``"resident"`` where max(n, m) <= ``MAX_DIM`` and
+    the block's matrices and staging fit ``SMEM_LIMIT``
+    (csrc/admm_shared.cu), else ``"streaming"`` where the JAX package's
+    ``shared_kernel_fits`` admits the shape (csrc/admm_shared_stream.cu),
+    else None.  Raises for a ``block`` outside 1..``MAX_BLOCK``."""
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"kernel_block must be in [1, {MAX_BLOCK}], got {block}")
-    return max(n, m) <= MAX_DIM and smem_bytes(n, m, block) <= SMEM_LIMIT
+    if max(n, m) <= MAX_DIM and _resident_smem_bytes(n, m, block) <= SMEM_LIMIT:
+        return "resident"
+    if _jax_shared_kernel_fits(n, m) and _stream_group(n, m):
+        return "streaming"
+    return None
+
+
+def shared_kernel_fits(n: int, m: int, block: int) -> bool:
+    """Whether the shared kernel takes a problem of ``(n, m)`` in blocks of
+    ``block`` problems on one of its routes: exactly where the JAX package's
+    ``shared_kernel_fits(n, m)`` admits its fused kernel.  ``solve_qp_batch``
+    routes a shared-factor batch past it to the torch shared loop, as the
+    JAX package falls through to its XLA shared-GEMM path.  Raises for a
+    ``block`` outside 1..``MAX_BLOCK``."""
+    return shared_route(n, m, block) is not None
 
 
 def shared_plan(B: int, n: int, m: int, block: int):
-    """How the shared kernel lays out ``B`` problems in blocks of at most
-    ``block`` (mirrors ``plan`` in csrc/admm_shared.cu): ``(P, pb, warps,
-    smem)`` = problems a warp advances together, problems per block, warps
-    per block, dynamic shared memory in bytes.  Fleets too small to give
-    every warp scheduler a warp get one problem a warp, and those too small
-    to give every SM a block get smaller blocks."""
-    P = _block_group(block)
-    if P > 1 and -(-B // P) < 4 * SMS:
-        P = 1
-    pb = min(block, max(P, -(-B // SMS)))
-    warps = min(MAX_WARPS, -(-pb // P))
-    return P, pb, warps, smem_bytes(n, m, block)
+    """How the shared kernel lays out ``B`` problems (mirrors ``plan`` in
+    csrc/admm_shared.cu and csrc/admm_shared_stream.cu): ``(P, pb, warps,
+    smem)`` = problems advanced together (by a warp on the resident route,
+    by the whole block on the streaming route), problems per block, warps
+    per block, dynamic shared memory in bytes.  Resident route, in blocks of
+    at most ``block``: fleets too small to give every warp scheduler a warp
+    get one problem a warp, and those too small to give every SM a block get
+    smaller blocks.  Streaming route: the widest block that fits, its
+    threads in two parts of G / 2 problems (G >= 8 and max(n, m) <= 512) or
+    one part, each part with enough warps for two columns a thread of
+    max(n, m) in as few passes as ``STREAM_MAX_WARPS`` allow, spread evenly
+    over the passes.  Raises for a shape past both routes."""
+    route = shared_route(n, m, block)
+    if route == "resident":
+        P = _block_group(block)
+        if P > 1 and -(-B // P) < 4 * SMS:
+            P = 1
+        pb = min(block, max(P, -(-B // SMS)))
+        warps = min(MAX_WARPS, -(-pb // P))
+        return P, pb, warps, _resident_smem_bytes(n, m, block)
+    if route == "streaming":
+        G = _stream_group(n, m)
+        H = _stream_parts(G, max(n, m))
+        threads = -(-max(n, m) // STREAM_COLS)  # a part's, in one pass
+        passes = -(-threads // (32 * (STREAM_MAX_WARPS // H)))
+        return G, G, H * -(-threads // (32 * passes)), _stream_smem_bytes(n, m, G)
+    raise ValueError(f"the shared kernel takes no route at n={n}, m={m}")
+
+
+def smem_bytes(n: int, m: int, block: int) -> int:
+    """Dynamic shared memory one block of the shared kernel needs at ``(n,
+    m)`` in blocks of ``block`` problems, on the route :func:`shared_route`
+    gives the shape (whatever B).  Raises for a shape past both routes."""
+    return shared_plan(1, n, m, block)[3]
+
+
+def shared_stream_scratch(B: int, n: int, m: int) -> int:
+    """Floats of device-memory scratch one launch of the streaming route
+    needs (mirrors ``admm_shared_stream_scratch``): the transposed ``As``
+    and ``Ps``, and four vectors a problem (this iteration's x, z, y and
+    y As at a check)."""
+    return n * m + n * n + B * (2 * n + 2 * m)
 
 
 def problem_route(n: int, m: int):
@@ -323,19 +429,19 @@ def _check_args(per_problem, prm, Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u
                 f"the per-problem kernel cannot hold n={n}, m={m}: its vectors need "
                 f"{need} <= {SMEM_LIMIT} bytes of shared memory"
             )
-    else:
-        if not shared_kernel_fits(n, m, prm.kernel_block):
-            raise ValueError(
-                f"the shared-matrix kernel cannot hold n={n}, m={m}: it needs "
-                f"max(n, m) <= {MAX_DIM} and {smem_bytes(n, m, prm.kernel_block)} "
-                f"<= {SMEM_LIMIT} bytes of shared memory"
-            )
+    elif shared_route(n, m, prm.kernel_block) is None:
+        raise ValueError(
+            f"the shared-matrix kernel cannot hold n={n}, m={m}: past the JAX package's "
+            f"shared_kernel_fits bound, which both its routes keep"
+        )
     return B, n, m
 
 
-def _launch(fn_name, warps, prm, args, B, n, m):
+def _launch(fn_name, prm, args, B, n, m, ints=(), scratch=None):
     """Allocate the outputs and launch ``fn_name`` of the kernels' library on
-    the problems' device and current stream; raise on a non-zero CUDA code."""
+    the problems' device and current stream (``scratch``, a float32 tensor,
+    passed after the outputs; ``ints`` after ``B, n, m``); raise on a
+    non-zero CUDA code."""
     from .. import _build
 
     Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0 = args
@@ -348,12 +454,13 @@ def _launch(fn_name, warps, prm, args, B, n, m):
         torch.empty((B,), **f32), torch.empty((B,), **f32),
     )
     fn = getattr(_build.load(), fn_name)
+    extra = () if scratch is None else (scratch.data_ptr(),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             *(t.data_ptr() for t in (Minv, As, Ps, rho, sx, sy, c, qs, ls, us, l, u, x0, z0, y0, status0)),
-            *(t.data_ptr() for t in outs),
-            B, n, m, warps,
+            *(t.data_ptr() for t in outs), *extra,
+            B, n, m, *ints,
             prm.alpha, prm.sigma, prm.eps_abs, prm.eps_rel,
             prm.eps_primal_inf, prm.eps_dual_inf,
             prm.max_iter, prm.stop_check_iter, stream,
@@ -374,7 +481,10 @@ def admm_iterate_cuda_shared(
 ):
     """Shared-matrix fused ADMM on float32 tensors.
 
-    CUDA tensors launch ``csrc/admm_shared.cu`` (or raise); CPU tensors run
+    CUDA tensors launch the route :func:`shared_route` gives the shape (or
+    raise): ``csrc/admm_shared.cu`` for the resident route,
+    ``csrc/admm_shared_stream.cu`` (with its scratch) for the streaming
+    route; shapes past both raise.  CPU tensors run
     :func:`admm_iterate_reference`.  ``Minv``/``Ps`` (n, n), ``As`` (m, n),
     ``rho``/``sy`` (m,), ``sx`` (n,), ``c`` 0-d.  Returns ``(x, z, y, status,
     iters, pres, dres)`` in scaled variables."""
@@ -382,7 +492,12 @@ def admm_iterate_cuda_shared(
     B, n, m = _check_args(False, prm, *args)
     if _device_type(qs) == "cpu":
         return admm_iterate_reference(prm, *args)
-    outs = _launch("admm_shared_launch", prm.kernel_block, prm, args, B, n, m)
+    if shared_route(n, m, prm.kernel_block) == "resident":
+        outs = _launch("admm_shared_launch", prm, args, B, n, m, (prm.kernel_block,))
+    else:
+        scratch = torch.empty(shared_stream_scratch(B, n, m), dtype=torch.float32,
+                              device=qs.device)
+        outs = _launch("admm_shared_stream_launch", prm, args, B, n, m, scratch=scratch)
     with _count_lock:
         admm_iterate_cuda_shared.launches += 1
     return outs
@@ -404,7 +519,7 @@ def admm_iterate_cuda(
     B, n, m = _check_args(True, prm, *args)
     if _device_type(qs) == "cpu":
         return admm_iterate_reference(prm, *args)
-    outs = _launch("admm_problem_launch", PROBLEM_WARPS, prm, args, B, n, m)
+    outs = _launch("admm_problem_launch", prm, args, B, n, m, (PROBLEM_WARPS,))
     with _count_lock:
         admm_iterate_cuda.launches += 1
     return outs

@@ -11,9 +11,11 @@ Shared factors (``qp_factorize`` of one template, no batch axis on
 ``(B, k) @ (k, j)`` GEMM and no batch of copies is materialized.
 
 Backends: ``"torch"`` runs the plain loop below; ``"cuda"`` runs a kernel of
-``qp/cuda_kernel.py``: the shared-matrix kernel against shared factors (a
-shape it cannot hold runs the torch shared loop instead, on the problems'
-device, and counts one ``shared_fallthroughs``), the per-problem kernel
+``qp/cuda_kernel.py``: the shared-matrix kernel against shared factors, on
+its resident or its streaming route (a shape past the JAX package's
+``shared_kernel_fits``, which bounds both, runs the torch shared loop
+instead, on the problems' device, and counts one ``shared_fallthroughs``,
+as the JAX package falls through to its XLA path), the per-problem kernel
 against per-problem factors or none (then every member is scaled and
 factorized here first, in torch).  ``"lane"`` is the JAX package's
 batch-trailing backend for fleets of tiny per-problem QPs: on CPU tensors
@@ -511,10 +513,11 @@ def _scaled_inputs(A, q, l, u, factors, warmstart, shared):
     return cB, sxB, syB, qs, ls, us, x0, z0, y0, status0
 
 
-def _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0):
-    """The shared-matrix kernel's arguments after ``prm``, in its order."""
+def _kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0, dtype=torch.float32):
+    """The ADMM kernels' arguments after ``prm``, in their order, as
+    contiguous ``dtype`` (the kernels take float32)."""
     c, sx, sy, rho, Ps, As, _, Minv, _ = factors
-    f32 = lambda a: a.to(torch.float32).contiguous()
+    f32 = lambda a: a.to(dtype).contiguous()
     return (
         f32(Minv), f32(As), f32(Ps), f32(qs), f32(ls), f32(us),
         f32(rho), f32(sx), f32(sy), f32(c), f32(l), f32(u),
@@ -961,7 +964,8 @@ def _solve_qp_batch_lane(prm, P, q, A, l, u, warmstart, factors):
 
 
 # shared-factor solves on backend="cuda" that ran the torch shared loop
-# because the shared kernel cannot hold their shape (nothing launched)
+# because their shape is past the JAX package's shared_kernel_fits, which
+# bounds both routes of the shared kernel (nothing launched)
 shared_fallthroughs = 0
 
 
@@ -990,16 +994,24 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
     if on_kernel and shared:
         from .cuda_kernel import shared_kernel_fits
 
-        # shapes the shared kernel cannot hold take the torch shared loop
-        # below on the problems' own device, as the JAX package's "pallas"
+        # shapes past the JAX package's shared_kernel_fits take the torch
+        # shared loop below on the problems' own device, as its "pallas"
         # backend falls through to its XLA shared-GEMM path; decided by
         # shape before anything launches
         if not shared_kernel_fits(A.shape[-1], A.shape[-2], prm.kernel_block):
             on_kernel = False
             _bump("shared_fallthroughs")
     if on_kernel:
-        from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared
+        from .cuda_kernel import admm_iterate_cuda, admm_iterate_cuda_shared, admm_iterate_reference
 
+        if dev.type == "cpu" and dt != torch.float32:
+            # the kernels take float32; on CPU tensors of another dtype their
+            # plain version runs in that dtype (the wrappers run it on CPU
+            # tensors of float32)
+            run_shared = run_problem = admm_iterate_reference
+            kdt = dt
+        else:
+            run_shared, run_problem, kdt = admm_iterate_cuda_shared, admm_iterate_cuda, torch.float32
         if shared:
             # sort_stragglers: a pure batch permutation, inverted on the way out
             do_sort = prm.sort_stragglers and warmstart is not None
@@ -1011,8 +1023,8 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
                 )
             else:
                 l_s, u_s = l, u
-            x, z, y, status, iters, pres, dres = admm_iterate_cuda_shared(
-                prm, *_kernel_args(factors, qs, ls, us, l_s, u_s, x0, z0, y0, status0)
+            x, z, y, status, iters, pres, dres = run_shared(
+                prm, *_kernel_args(factors, qs, ls, us, l_s, u_s, x0, z0, y0, status0, kdt)
             )
             if do_sort:
                 x, z, y, status, iters, pres, dres = (
@@ -1020,8 +1032,8 @@ def _solve_qp_batch_impl(qp, prm, warmstart, factors):
                 )
         else:
             # each member exits on its own: no straggler sort on this route
-            x, z, y, status, iters, pres, dres = admm_iterate_cuda(
-                prm, *_kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0)
+            x, z, y, status, iters, pres, dres = run_problem(
+                prm, *_kernel_args(factors, qs, ls, us, l, u, x0, z0, y0, status0, kdt)
             )
         return _finalize_solution(
             prm, P, q, A, l, u, cB, sxB, syB, x.to(dt), y.to(dt), status, iters,

@@ -148,8 +148,9 @@ def test_kernel_statuses_match_plain_version(dev, n, m, block, stop_check_iter):
 
 
 def test_kernel_refuses_what_it_cannot_hold(dev):
-    """Shapes beyond one block's shared memory, blocks beyond 8 problems and
-    tensors on different devices raise before any launch."""
+    """Shapes past both routes (the JAX package's shared_kernel_fits bound),
+    blocks beyond 8 problems and tensors on different devices raise before
+    any launch."""
     args = _inputs(7, 9, 4, seed=0, dev=dev)
     prm = QPSolverParams(polish=False, backend="cuda")
     admm_iterate_cuda_shared.launches = 0
@@ -159,7 +160,7 @@ def test_kernel_refuses_what_it_cannot_hold(dev):
         admm_iterate_cuda_shared(prm, *mixed)
     with pytest.raises(ValueError, match="kernel_block"):
         admm_iterate_cuda_shared(QPSolverParams(polish=False, kernel_block=9), *args)
-    n = m = 160
+    n = m = 1792  # past the JAX package's shared_kernel_fits, so past both routes
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
     big = [z(n, n), z(m, n), z(n, n), z(2, n), z(2, m), z(2, m), z(m), z(n), z(m), z(),
            z(2, m), z(2, m), z(2, n), z(2, m), z(2, m),
@@ -219,6 +220,137 @@ def test_kernel_groups_freeze_members_and_mask_a_ragged_tail(dev, n, m, block):
     assert int(k[3][B - 1]) == int(r[3][B - 1])
     ki, ri = float(k[4].float().mean()), float(r[4].float().mean())
     assert abs(ki - ri) <= 0.02 * ri
+
+
+# the streaming route of the shared kernel (csrc/admm_shared_stream.cu):
+# bench.py --sweep's shapes past the resident route, and one non-square shape
+STREAM_SHAPES = [(158, 158), (302, 302), (602, 602), (300, 170)]
+
+
+def _f64(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+@pytest.mark.parametrize("n,m", STREAM_SHAPES)
+def test_streaming_route_iterates_match_plain_version(dev, n, m):
+    """The streaming route with stopping disabled (all tolerances 0) at a
+    seeded B = 64: both run exactly 40 iterations.  These shapes sum up to
+    602 terms a product, so f32 rounding grows with the width: each vector
+    is held to the f32 plain version within chip_smoke.ITER_TOL of its
+    scale plus twice the plain version's own distance from a float64 run
+    (chip_smoke.fixed_iteration_check's bound), the returned residuals
+    within RES_ATOL + RES_RTOL of their size plus twice that distance."""
+    from chip_smoke import ITER_TOL
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_route
+
+    assert shared_route(n, m, 8) == "streaming"
+    args = _inputs(n, m, 64, seed=n + m, dev=dev)
+    prm = QPSolverParams(polish=False, rho=2.0, rho_eq_scale=15.0, max_iter=40,
+                         stop_check_iter=10, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                         eps_dual_inf=0.0, backend="cuda")
+    admm_iterate_cuda_shared.launches = 0
+    k = admm_iterate_cuda_shared(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *_f64(args))
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda_shared.launches == 1
+    assert torch.equal(k[3], r[3]) and torch.equal(k[4], r[4])
+    assert int((k[3] == QPSolutionStatus.MaxIterations).sum()) == 63
+    for kt, rt, dt in zip(k[:3], r[:3], d[:3]):
+        floor = float((rt.double() - dt).abs().max())
+        scale = max(1.0, float(dt.abs().max()))
+        assert float((kt - rt).abs().max()) <= ITER_TOL * scale + 2 * floor
+    for kt, rt, dt in zip(k[5:], r[5:], d[5:]):
+        run = torch.isfinite(rt)  # the untouched member holds inf in both
+        assert torch.equal(torch.isfinite(kt), run)
+        floor = float((rt[run].double() - dt[run]).abs().max())
+        assert bool(((kt - rt)[run].abs() <= RES_ATOL + RES_RTOL * rt[run].abs() + 2 * floor).all())
+
+
+@pytest.mark.parametrize("n,m", STREAM_SHAPES)
+def test_streaming_route_statuses_match_plain_version(dev, n, m):
+    """The streaming route with the stopping check on, at a seeded B = 64,
+    against the plain version in float64: every status equal, the mean
+    iteration count no further from the float64 run's than the f32 plain
+    version's or 2 %, and the member that started PrimalInfeasible back
+    untouched.  The f32 plain version is not the bar here: its sums of up
+    to 602 terms round more than the kernel's runs of 32 (on an H100, at
+    (608, 608), it ran two of 64 members to max_iter where the kernel
+    stopped)."""
+    args = _inputs(n, m, 64, seed=n + m, dev=dev)
+    prm = QPSolverParams(polish=False, rho=2.0, rho_eq_scale=15.0, max_iter=1500,
+                         stop_check_iter=10, backend="cuda")
+    k = admm_iterate_cuda_shared(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *_f64(args))
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], d[3])
+    mean = lambda a: float(a[4].float().mean())
+    assert abs(mean(k) - mean(d)) <= max(abs(mean(r) - mean(d)), 0.02 * mean(d))
+    assert int(k[3][1]) == QPSolutionStatus.PrimalInfeasible and int(k[4][1]) == 0
+    assert torch.equal(k[0][1], args[12][1]) and float(k[5][1]) == float("inf")
+    assert float((k[3] == QPSolutionStatus.Optimal).float().mean()) >= 0.95
+
+
+@pytest.mark.parametrize("n,m", STREAM_SHAPES)
+def test_streaming_route_iteration_counts_match_float64(dev, n, m):
+    """At B = 1000 with the stopping check on (a member whose residual ends
+    within f32 rounding of a check's threshold stops one check earlier or
+    later, so counts are compared over many members, as the resident
+    route's test above does): statuses agree with the float64 run's on
+    99.9 % of members, and iteration counts equal its counts on as many
+    members as the f32 plain version's, within 5 points."""
+    args = _inputs(n, m, 1000, seed=n + m, dev=dev)
+    prm = QPSolverParams(polish=False, rho=2.0, rho_eq_scale=15.0, max_iter=1500,
+                         stop_check_iter=10, backend="cuda")
+    k = admm_iterate_cuda_shared(prm, *args)
+    r = admm_iterate_reference(prm, *args)
+    d = admm_iterate_reference(prm, *_f64(args))
+    torch.cuda.synchronize()
+    assert float((k[3] == d[3]).float().mean()) >= 0.999
+    eq_iters = lambda a, b: float((a[4] == b[4]).float().mean())
+    assert eq_iters(k, d) >= eq_iters(r, d) - 0.05, (eq_iters(k, d), eq_iters(r, d))
+
+
+def test_streaming_route_ragged_tail_and_stopped_members(dev):
+    """B = 83 at (202, 202): five full blocks of 16 and a last block of 3.
+    Two members of one block start stopped (DualInfeasible, x0 = 3) and
+    come back untouched, the others run; every member's result equals its
+    own launch at B = 1 bit for bit (a member depends on nothing but its
+    own data), 40 fixed iterations match the plain version within 1e-3,
+    and with stopping on every status equals the float64 run's."""
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_plan
+
+    n = m = 202
+    B = 83
+    assert shared_plan(B, n, m, 8)[:2] == (16, 16)
+    args = _inputs(n, m, B, seed=5, dev=dev)
+    stopped = [20, 21]
+    for s in stopped:
+        args[15][s] = int(QPSolutionStatus.DualInfeasible)
+        args[12][s] = 3.0
+    kw = dict(polish=False, rho=2.0, rho_eq_scale=15.0, stop_check_iter=10, backend="cuda")
+    fixed = QPSolverParams(max_iter=40, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                           eps_dual_inf=0.0, **kw)
+    k = admm_iterate_cuda_shared(fixed, *args)
+    r = admm_iterate_reference(fixed, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], r[3]) and torch.equal(k[4], r[4])
+    for kt, rt in zip(k[:3], r[:3]):
+        torch.testing.assert_close(kt, rt, atol=1e-3, rtol=1e-3)
+    for s in stopped + [1]:
+        assert int(k[4][s]) == 0 and float(k[5][s]) == float("inf")
+        for out, start in zip(k[:3], args[12:15]):
+            assert torch.equal(out[s], start[s])
+    prm = QPSolverParams(max_iter=1500, **kw)
+    k = admm_iterate_cuda_shared(prm, *args)
+    for b in (0, 20, 47, 80, 82):
+        one = [a[b:b + 1].contiguous() if a.dim() and a.shape[0] == B else a for a in args]
+        k1 = admm_iterate_cuda_shared(prm, *one)
+        assert all(torch.equal(x[b:b + 1], y) for x, y in zip(k, k1)), b
+    d = admm_iterate_reference(prm, *_f64(args))
+    torch.cuda.synchronize()
+    assert torch.equal(k[3], d[3])
 
 
 def test_solver_cuda_backend_goes_through_kernel(dev):
@@ -570,16 +702,17 @@ def test_ocp_qp_round_trip_on_card(dev):
 
 
 def test_shared_factors_past_the_kernel_run_the_torch_loop(dev):
-    """Shared factors at n = m = 160 (past the shared kernel's MAX_DIM) on
+    """Shared factors at n = m = 1792 (past the JAX package's
+    shared_kernel_fits, so past both routes of the shared kernel) on
     backend "cuda" with CUDA tensors: the torch shared loop runs on the
     card, nothing is launched, and statuses and iteration counts equal
     backend "torch"'s."""
-    from chip_smoke import shared_route_problem
+    from chip_smoke import SHARED_ROUTE_N, shared_route_problem
     from smooth_feedback_tpu_torch.qp import solver as qsolver
     from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_kernel_fits
 
     qp = qp_from_numpy(shared_route_problem(), dev, torch.float32)
-    assert not shared_kernel_fits(160, 160, 8)
+    assert SHARED_ROUTE_N == 1792 and not shared_kernel_fits(1792, 1792, 8)
     f = qp_factorize(qp._replace(q=qp.q[:1], l=qp.l[:1], u=qp.u[:1]))
     f = type(f)(*(a[0] for a in f))
     admm_iterate_cuda.launches = admm_iterate_cuda_shared.launches = 0

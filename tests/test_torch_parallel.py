@@ -473,9 +473,11 @@ def test_counters_lose_no_increment(monkeypatch):
     P, A = np.eye(n), rng.standard_normal((m, n))
     q, l, u = rng.standard_normal((b, n)), -np.ones((b, m)), np.ones((b, m))
     qp = convert.qp_from_numpy((np.tile(P, (b, 1, 1)), q, np.tile(A, (b, 1, 1)), l, u), "cpu")
-    # shared factors with more rows than the shared kernel holds (m > 128):
+    # shared factors with more rows than the shared kernel takes (past the
+    # JAX package's shared_kernel_fits, which bounds both its routes):
     # backend="cuda" takes the torch shared loop and counts a fall-through
-    mw = cuda_kernel.MAX_DIM + 2
+    mw = 9984
+    assert not cuda_kernel.shared_kernel_fits(n, mw, 8)
     Aw = rng.standard_normal((mw, n))
     wide = convert.qp_from_numpy((P[None], q, Aw[None], -np.ones((b, mw)), np.ones((b, mw))),
                                  "cpu")

@@ -280,7 +280,7 @@ def test_kernel_wrapper_rejects_bad_inputs():
     bad[0] = bad[0][:, :-1]
     with pytest.raises(ValueError):
         admm_iterate_cuda_shared(prm, *bad)
-    n = m = 160  # beyond what one block's shared memory holds
+    n = m = 1792  # past the JAX package's shared_kernel_fits, so past both routes
     big = [
         torch.zeros(s, dtype=torch.float32)
         for s in [(n, n), (m, n), (n, n), (2, n), (2, m), (2, m), (m,), (n,), (m,), (),
