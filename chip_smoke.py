@@ -10,9 +10,11 @@ kernels:
   route);
 - bench.py --sweep's other fleets of that controller: K = 50 sparse (n = m
   = 158, B = 8192), K = 100 condensed (100) and sparse (302) at B = 4096,
-  K = 200 condensed (200) and sparse (602) at B = 2048, all but K = 100
-  condensed through the shared kernel's streaming route
-  (csrc/admm_shared_stream.cu);
+  K = 200 condensed (200) and sparse (602) at B = 2048: (200, 200) and
+  (602, 602) through the shared kernel's cluster route
+  (csrc/admm_shared_cluster.cu), (158, 158) and (302, 302) through its
+  streaming route (csrc/admm_shared_stream.cu), which is also held at a
+  shape past the cluster route's capacity;
 - the README Quickstart's SE(2) vehicle fleet on per-member clocks (K=30,
   n = 163, m = 99 sparse QP, B = 1024, float32, every member transcribed and
   factorized on its own) through the per-problem kernel
@@ -77,10 +79,14 @@ Phases:
      just before and read just after, step time, the Optimal share, and the
      first steps again on the plain path; sweep-shapes: each of bench.py
      --sweep's five other fleets, one cold and 10 warm steps, one
-     admm_shared launch a step and no fall-through, the kernel against its
-     plain version on the first warm step's QPs (and over fixed iterations
-     at (158, 158) and (602, 602)), its times beside the torch shared
-     loop's;
+     admm_shared launch a step on the route SWEEP_ROUTES names and no
+     fall-through, both larger kernels' plans from the library against the
+     Python mirrors, the kernel against its plain version on the first warm
+     step's QPs (and over fixed iterations at (158, 158) and (602, 602)),
+     its times beside the torch shared loop's and the other larger
+     kernel's on the same inputs; stream-route: the streaming route at a
+     shape past the cluster route's capacity, one launch, 20 fixed
+     iterations against its plain version;
   5. ekf-fleet: the three layouts held against each other and against the
      CPU float64 port, rates over 100 chained steps, a step split, the
      square-root P checked PSD, the batched library calls timed against
@@ -258,6 +264,14 @@ SWEEP_CONFIGS = ((50, 8192, False), (100, 4096, True), (100, 4096, False), (200,
                  (200, 2048, False))
 SWEEP_WARM = 10  # warm closed-loop steps after the cold one
 SWEEP_FIXED = ((158, 158), (602, 602))  # shapes also held over fixed iterations
+# the route each sweep shape takes (qp.cuda_kernel.shared_route, by shape),
+# set by the cluster and streaming kernels' times on these shapes (PERF.md)
+SWEEP_ROUTES = {(158, 158): "streaming", (100, 100): "resident", (302, 302): "streaming",
+                (200, 200): "cluster", (602, 602): "cluster"}
+# the streaming route, held on the card past the cluster route's capacity
+# (640 square): a seeded shared family, 20 fixed iterations
+STREAM_SHAPE = (900, 900)
+STREAM_B = 64
 
 
 def ocp_sweep_velocities(B_=OCP_B, seed=SEED):
@@ -322,6 +336,11 @@ SPLINE_TOL = (1e-5, 5e-5, 5e-4)
 KERNELS = {
     "admm_shared": ("smooth_feedback_tpu_torch/csrc/admm_shared.cu",
                     "smooth_feedback_tpu/qp/pallas_kernel.py:234"),
+    # the same TPU kernel's larger shapes (qp.cuda_kernel.shared_route)
+    "admm_shared_cluster": ("smooth_feedback_tpu_torch/csrc/admm_shared_cluster.cu",
+                            "smooth_feedback_tpu/qp/pallas_kernel.py:234"),
+    "admm_shared_stream": ("smooth_feedback_tpu_torch/csrc/admm_shared_stream.cu",
+                           "smooth_feedback_tpu/qp/pallas_kernel.py:234"),
     "admm_problem": ("smooth_feedback_tpu_torch/csrc/admm_problem.cu",
                      "smooth_feedback_tpu/qp/pallas_kernel.py:47"),
     # no Pallas kernel: the JAX package's lane backend, one XLA while_loop
@@ -369,7 +388,7 @@ def build_phase():
     # problems a warp), registers and spills
     name = "?"
     for line in _build.build_log.splitlines():
-        found = re.search(r"\d(admm_[a-z]+_kernel)(?:I((?:Li\d+E)+))?", line)
+        found = re.search(r"\d(admm_[a-z_]+_kernel)(?:I((?:Li\d+E)+))?", line)
         if found:
             name = found.group(1) + ("<" + ", ".join(re.findall(r"Li(\d+)E", found.group(2))) + ">"
                                      if found.group(2) else "")
@@ -399,20 +418,39 @@ def layout_phase():
                         f"shared memory a block")
         require(tuple(out) == ck.shared_plan(b, 52, 52, block),
                 "shared_plan does not mirror the library")
-    # the streaming route at the sweep's shapes and at the edges of the JAX
-    # package's gate (1664 square, m = 9856 at n = 128), its scratch too
+    # the streaming route's layout (which the library gives at any shape it
+    # holds) at the sweep's shapes, past the cluster route's capacity and at
+    # the edges of the JAX package's gate (1664 square, m = 9856 at n =
+    # 128), its scratch too
     for b, n, m in [(8192, 158, 158), (4096, 308, 308), (2048, 202, 202), (2048, 608, 608),
-                    (8, 1664, 1664), (4, 128, 9856)]:
+                    (STREAM_B, *STREAM_SHAPE), (8, 1664, 1664), (4, 128, 9856)]:
         out = (ctypes.c_int * 4)()
         require(lib.admm_shared_stream_plan(b, n, m, out) == 0,
                 f"admm_shared_stream_plan refused ({n}, {m})")
-        require(ck.shared_route(n, m, block) == "streaming" and tuple(out) == ck.shared_plan(b, n, m, block),
-                "shared_plan does not mirror the streaming route's library")
+        require(tuple(out) == ck.stream_plan(n, m),
+                "stream_plan does not mirror the streaming route's library")
         require(lib.admm_shared_stream_scratch(b, n, m) == ck.shared_stream_scratch(b, n, m),
                 "shared_stream_scratch does not mirror the library")
-        phase("layout", f"admm_shared (streaming) at B={b}, n={n}, m={m}: {out[0]} problems a "
-                        f"block in lockstep, {out[2]} warps, {out[3]} bytes of shared memory a "
-                        f"block, {ck.shared_stream_scratch(b, n, m) * 4} bytes of scratch")
+        route = ck.shared_route(n, m, block)
+        require(route in ("cluster", "streaming"), f"({n}, {m}) takes the {route} route")
+        phase("layout", f"admm_shared (streaming) at B={b}, n={n}, m={m} ({route} route): "
+                        f"{out[0]} problems a block in lockstep, {out[2]} warps, {out[3]} bytes of "
+                        f"shared memory a block, {ck.shared_stream_scratch(b, n, m) * 4} bytes of "
+                        f"scratch")
+    # the cluster kernel's plan at the sweep's shapes, its largest square
+    # shape, and one past it (refused)
+    for b, n, m in [(8192, 158, 158), (4096, 302, 302), (2048, 200, 200), (2048, 602, 602),
+                    (83, 300, 170), (8, 640, 640)]:
+        plan = cluster_layout(lib, b, n, m)
+        phase("layout", f"admm_shared (cluster) at B={b}, n={n}, m={m} "
+                        f"({ck.shared_route(n, m, block)} route): clusters of {plan[0]} "
+                        f"blocks advancing {plan[1]} problems, {plan[2]} warps and {plan[3]} bytes "
+                        f"of shared memory a block, {plan[4]} clusters resident, "
+                        f"{ck.shared_cluster_scratch(b, n, m) * 4} bytes of scratch")
+    out = (ctypes.c_int * 5)()
+    require(lib.admm_shared_cluster_plan(8, 641, 641, out) != 0
+            and ck.shared_route(641, 641, block) == "streaming",
+            "n = m = 641 fits the cluster route")
     smem = ctypes.c_int(0)
     resident = lib.admm_problem_route(163, 99, ck.PROBLEM_WARPS, ctypes.byref(smem))
     route = "resident" if resident else "streaming"
@@ -562,6 +600,29 @@ def wrappers():
 def reset_counts():
     for w in wrappers().values():
         w.launches = 0
+    routes = wrappers()["admm_shared"].route_launches
+    for r in routes:
+        routes[r] = 0
+
+
+def cluster_layout(lib, b, n, m):
+    """The cluster kernel's plan at ``(n, m)`` for ``b`` problems, asked of
+    the built library (blocks a cluster, problems a cluster, warps and
+    shared memory a block, clusters resident) and held against the Python
+    mirror and its scratch."""
+    import ctypes
+
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+
+    out = (ctypes.c_int * 5)()
+    err = lib.admm_shared_cluster_plan(b, n, m, out)
+    require(err == 0, f"admm_shared_cluster_plan refused ({n}, {m}): CUDA error {err}")
+    require(tuple(out)[:4] == ck.cluster_plan(n, m),
+            f"cluster_plan {ck.cluster_plan(n, m)} does not mirror the library's {tuple(out)[:4]}")
+    require(lib.admm_shared_cluster_scratch(b, n, m) == ck.shared_cluster_scratch(b, n, m),
+            "shared_cluster_scratch does not mirror the library")
+    require(out[4] >= 1, f"no cluster of {out[0]} blocks is resident at ({n}, {m})")
+    return tuple(out)
 
 
 def read_counts():
@@ -2940,8 +3001,11 @@ def sweep_config_phase(K_, B_, condense, dev):
     first warm step's QPs (compare_with_plain; at SWEEP_FIXED also fixed
     iterations), its time warm and cold beside the plain version's, the
     bound and the torch shared loop's solve (the route these shapes took
-    before the streaming route).  Returns ``(launches, worst error,
-    row)``."""
+    before the streaming route).  The route must be SWEEP_ROUTES' and take
+    every launch; past the resident route both larger kernels' plans from
+    the library must equal the Python mirrors, and the other larger kernel
+    is timed on the same inputs beside the route's.  Returns ``(launches,
+    worst error, row)``."""
     from smooth_feedback_tpu_torch.qp import (
         admm_iterate_cuda_shared, admm_iterate_reference, shared_kernel_args, solve_qp_batch,
     )
@@ -2976,12 +3040,31 @@ def sweep_config_phase(K_, B_, condense, dev):
     reset_counts()
     (opt, its, step_s, u), solves = capture_solves(run)
     counts, falls = read_counts(), qsolver.shared_fallthroughs - fall0
+    by_route = dict(admm_iterate_cuda_shared.route_launches)
     qp, _, _, f = solves[1]
     n, m = f.Minv.shape[0], f.As.shape[0]
     route = ck.shared_route(n, m, prm.kernel_block)
+    plan = None
+    if route != "resident":
+        import ctypes
+
+        from smooth_feedback_tpu_torch import _build
+
+        lib = _build.load()
+        plan = cluster_layout(lib, B_, n, m)
+        splan = (ctypes.c_int * 4)()
+        require(lib.admm_shared_stream_plan(B_, n, m, splan) == 0
+                and tuple(splan) == ck.stream_plan(n, m),
+                f"{label}: stream_plan does not mirror the library")
+        phase("sweep-shapes", f"{label}: route {route}; the library's plans (the Python mirrors "
+                              f"equal): cluster kernel, clusters of {plan[0]} blocks advancing "
+                              f"{plan[1]} problems, {plan[2]} warps and {plan[3]} bytes of shared "
+                              f"memory a block, {plan[4]} clusters resident; streaming kernel, "
+                              f"{splan[0]} problems a block, {splan[2]} warps, {splan[3]} bytes")
     med = float(np.median(step_s[1:]))
     phase("sweep-shapes", f"{label}: QP n={n} m={m}, route {route}, make_mpc_step "
-                          f"{t_build:.3f} s; launches {counts}, fall-throughs {falls} in "
+                          f"{t_build:.3f} s; launches {counts} (by route {by_route}), "
+                          f"fall-throughs {falls} in "
                           f"{1 + SWEEP_WARM} steps; Optimal a step (cold first) "
                           f"{[round(o * 100, 3) for o in opt]}% (bench.py's gate 99.9%); iters "
                           f"p50 {[round(pct(i, 50)) for i in its]} max "
@@ -2990,8 +3073,9 @@ def sweep_config_phase(K_, B_, condense, dev):
     require(counts == {"admm_shared": 1 + SWEEP_WARM, "admm_problem": 0, "admm_lane": 0},
             f"{label}: {counts} launches in {1 + SWEEP_WARM} steps, expected one admm_shared a step")
     require(falls == 0, f"{label}: {falls} shared-loop fall-throughs")
-    require(route == ("resident" if max(n, m) <= ck.MAX_DIM else "streaming"),
-            f"{label}: route {route}")
+    require(route == SWEEP_ROUTES[(n, m)], f"{label}: route {route}, expected "
+                                          f"{SWEEP_ROUTES[(n, m)]}")
+    require(by_route[route] == 1 + SWEEP_WARM, f"{label}: launches by route {by_route}")
     require(bool(torch.isfinite(u).all()), f"{label}: non-finite u")
     require(tuple(u.shape) == (1 + SWEEP_WARM, B_, 1), f"{label}: u has shape {tuple(u.shape)}")
 
@@ -3024,6 +3108,37 @@ def sweep_config_phase(K_, B_, condense, dev):
     )
     row["bound_ms"], row["bound_by"] = bound(warm, k, prm_w)
     row["cold_bound_ms"], _ = bound(cold, kc, prm_c)
+    row["launches_by_route"] = by_route
+    if plan is not None:
+        # the other kernel past the resident route on the same inputs,
+        # launched directly, not counted: each shape's route is the faster
+        row["plan"] = dict(zip(("C", "G", "warps", "smem", "clusters"), plan))
+        own = "cluster" if route == "cluster" else "stream"
+        other, launch = (("stream", stream_launch) if route == "cluster"
+                         else ("cluster", cluster_launch))
+        for key in ("ms", "single_ms", "cold_ms", "cold_single_ms", "mean_iters",
+                    "cold_mean_iters"):
+            row[f"{own}_{key}"] = row[key]
+        ko = launch(prm_w, warm)
+        koc = launch(prm_c, cold)
+        torch.cuda.synchronize()
+        row.update({
+            f"{other}_ms": time_ms(lambda: launch(prm_w, warm), 5),
+            f"{other}_single_ms": time_single_ms(lambda: launch(prm_w, warm), 5),
+            f"{other}_cold_ms": time_ms(lambda: launch(prm_c, cold), 3),
+            f"{other}_cold_single_ms": time_single_ms(lambda: launch(prm_c, cold), 3),
+            f"{other}_mean_iters": float(ko[4].float().mean()),
+            f"{other}_cold_mean_iters": float(koc[4].float().mean()),
+        })
+        phase("kernel", f"sweep {label} ({n}, {m}), the {other} kernel on the same inputs: warm "
+                        f"{row[other + '_ms']:.4f} ms (single {row[other + '_single_ms']:.4f} ms, "
+                        f"{row[other + '_mean_iters']:.2f} mean iters), cold "
+                        f"{row[other + '_cold_ms']:.4f} ms (single "
+                        f"{row[other + '_cold_single_ms']:.4f} ms, "
+                        f"{row[other + '_cold_mean_iters']:.2f} mean iters); cluster / streaming "
+                        f"warm {row['cluster_ms'] / row['stream_ms']:.3f} (single "
+                        f"{row['cluster_single_ms'] / row['stream_single_ms']:.3f}), cold "
+                        f"{row['cluster_cold_ms'] / row['stream_cold_ms']:.3f}")
     phase("kernel", f"sweep {label} ({n}, {m}), {route} route: warm solve kernel "
                     f"{row['ms']:.4f} ms (mean of back-to-back calls; median of single launches "
                     f"{row['single_ms']:.4f} ms, {row['mean_iters']:.2f} mean iters), plain "
@@ -3033,6 +3148,80 @@ def sweep_config_phase(K_, B_, condense, dev):
                     f"{row['cold_bound_ms']:.4f} ms; the warm solve_qp_batch on backend cuda "
                     f"{row['solve_ms']:.4f} ms, on the torch shared loop {row['torch_loop_ms']:.4f} ms")
     return counts["admm_shared"], worst, row
+
+
+def stream_launch(prm, args):
+    """One launch of the streaming route's kernel (csrc/admm_shared_stream.cu)
+    on the shared kernel's arguments, whatever route the shape takes: timed
+    beside the cluster route's kernel on the same inputs.  Not counted as a
+    launch of the path."""
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+
+    B_, n = args[3].shape
+    m = args[4].shape[1]
+    scratch = torch.empty(ck.shared_stream_scratch(B_, n, m), dtype=torch.float32,
+                          device=args[3].device)
+    return ck._launch("admm_shared_stream_launch", prm, args, B_, n, m, scratch=scratch)
+
+
+def cluster_launch(prm, args):
+    """One launch of the cluster route's kernel (csrc/admm_shared_cluster.cu,
+    its own plan) on the shared kernel's arguments, whatever route the shape
+    takes: timed beside the streaming route's kernel on the same inputs.
+    Not counted as a launch of the path."""
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+
+    B_, n = args[3].shape
+    m = args[4].shape[1]
+    scratch = torch.empty(ck.shared_cluster_scratch(B_, n, m), dtype=torch.float32,
+                          device=args[3].device)
+    return ck._launch("admm_shared_cluster_launch", prm, args, B_, n, m, scratch=scratch)
+
+
+def stream_route_phase(dev):
+    """The streaming route on the card at STREAM_SHAPE, past the cluster
+    route's capacity: a seeded shared family (shared_route_problem, B =
+    STREAM_B) factorized on the card, one launch through the wrapper with
+    every count set to 0 just before and read just after (one admm_shared
+    launch, on the streaming route), then FIXED_ITERS fixed iterations
+    against the plain version (fixed_iteration_check), timed.  Returns the
+    route's launches, the worst error and its kernels-line row."""
+    from smooth_feedback_tpu_torch.convert import qp_from_numpy
+    from smooth_feedback_tpu_torch.qp import (
+        QPSolverParams, admm_iterate_cuda_shared, admm_iterate_reference, qp_factorize,
+        shared_kernel_args,
+    )
+    from smooth_feedback_tpu_torch.qp import cuda_kernel as ck
+
+    n, m = STREAM_SHAPE
+    qp = qp_from_numpy(shared_route_problem(n, STREAM_B), dev, torch.float32)
+    factors = qp_factorize(qp._replace(q=qp.q[:1], l=qp.l[:1], u=qp.u[:1]))
+    factors = type(factors)(*(a[0] for a in factors))
+    prm = QPSolverParams(backend="cuda", polish=False)
+    args = shared_kernel_args(qp, factors, None)
+    route = ck.shared_route(n, m, prm.kernel_block)
+    reset_counts()
+    admm_iterate_cuda_shared(prm, *args)
+    torch.cuda.synchronize()
+    counts, by_route = read_counts(), dict(admm_iterate_cuda_shared.route_launches)
+    phase("stream-route", f"shared factors at n={n} m={m}, B={STREAM_B}: route {route}; launches "
+                          f"{counts} (by route {by_route})")
+    require(route == "streaming" and by_route["streaming"] == 1 and counts["admm_shared"] == 1,
+            f"({n}, {m}) did not launch the streaming route once")
+    worst = fixed_iteration_check(admm_iterate_cuda_shared, args, prm,
+                                  start=f"the streaming route at ({n}, {m}), B={STREAM_B}")
+    fixed = dataclasses.replace(prm, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
+                                eps_dual_inf=0.0, max_iter=FIXED_ITERS)
+    k = admm_iterate_cuda_shared(fixed, *args)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: admm_iterate_cuda_shared(fixed, *args), 3)
+    single = time_single_ms(lambda: admm_iterate_cuda_shared(fixed, *args), 3)
+    plain = time_ms(lambda: admm_iterate_reference(fixed, *args), 2)
+    b_ms, b_by = bound(args, k, fixed)
+    phase("kernel", f"the streaming route at ({n}, {m}), B={STREAM_B}, {FIXED_ITERS} fixed "
+                    f"iterations: {ms:.4f} ms (single {single:.4f} ms), plain {plain:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+    return by_route["streaming"], worst, (ms, plain, b_ms, b_by, single)
 
 
 def sweep_shapes_phase(dev):
@@ -4101,7 +4290,20 @@ def main():
     launches = {"admm_shared": counts["admm_shared"]}
     sweep_launches, worst_w, sweep_rows = sweep_shapes_phase(dev)
     rows["admm_shared"] = (max(rows["admm_shared"][0], worst_w), rows["admm_shared"][1])
-    mark("sweep-shapes (bench.py --sweep's fleets)")
+    # the larger shapes' two routes, each with its sweep launches and timed
+    # at its widest sweep shape; the streaming route also past the cluster
+    # route's capacity
+    st_launches, worst_st, _ = stream_route_phase(dev)
+    for name, route in (("admm_shared_cluster", "cluster"), ("admm_shared_stream", "streaming")):
+        taken = [r for r in sweep_rows if r["route"] == route]
+        top = max(taken, key=lambda r: r["n"] * r["m"])
+        launches[name] = sum(r["launches_by_route"][route] for r in sweep_rows)
+        rows[name] = (max(r["max_abs_err"] for r in taken), (
+            top["ms"], top["plain_ms"], top["bound_ms"], top["bound_by"], top["single_ms"]))
+    launches["admm_shared_stream"] += st_launches
+    rows["admm_shared_stream"] = (max(rows["admm_shared_stream"][0], worst_st),
+                                  rows["admm_shared_stream"][1])
+    mark("sweep-shapes (bench.py --sweep's fleets) and stream-route")
     counts, kept = fleet_phase(fleet, fws0, dev)
     err = fleet_plain_phase(dev, kept)
     rows["admm_problem"] = (max(rows["admm_problem"][0], err), rows["admm_problem"][1])
@@ -4181,6 +4383,9 @@ def main():
                         "sweep-shapes": sweep_launches,
                         "vehicle-asif": vcounts["admm_shared"],
                         "parallel": plaunches["admm_shared"]},
+        "admm_shared_cluster": {"sweep-shapes": launches["admm_shared_cluster"]},
+        "admm_shared_stream": {"sweep-shapes": launches["admm_shared_stream"] - st_launches,
+                               "stream-route": st_launches},
         "admm_problem": {"per-member fleet": launches["admm_problem"],
                          "output-feedback": ofcounts["admm_problem"],
                          "ocp-sweep": ocounts["admm_problem"], **rcounts,
@@ -4190,7 +4395,7 @@ def main():
                       "parallel": plaunches["admm_lane"]},
     }
     for name in by_path:
-        by_path[name].update({f"examples/{ex}": c[name] for ex, c in xcounts.items() if c[name]})
+        by_path[name].update({f"examples/{ex}": c[name] for ex, c in xcounts.items() if c.get(name)})
     shapes = {
         "admm_shared": [f"B={B} n=m=52", "B=1024 n=m=52", f"B={ASIF_B} n=m=64",
                         f"B={B // pn} n=m=52 (parallel, {pn} shards)"]
@@ -4205,6 +4410,12 @@ def main():
                            f"{pn} shards)"],
         "admm_lane": [f"B={ASIF_B} n=3 m=53"] + lshapes
                      + [f"B={ASIF_B // pn} n=3 m=53 (parallel, {pn} shards)"],
+        "admm_shared_cluster": [f"B={r['B']} n={r['n']} m={r['m']} (sweep-shapes)"
+                                for r in sweep_rows if r["route"] == "cluster"],
+        "admm_shared_stream": [f"B={r['B']} n={r['n']} m={r['m']} (sweep-shapes)"
+                               for r in sweep_rows if r["route"] == "streaming"]
+                              + [f"B={STREAM_B} n={STREAM_SHAPE[0]} m={STREAM_SHAPE[1]} "
+                                 f"(stream-route)"],
     }
     for name, found in xfound.items():
         shapes[name] += [f"B={b} n={n} m={m} (examples/{ex})" for ex, _, _, (b, n, m) in found]
@@ -4226,11 +4437,12 @@ def main():
             "example_rows": [{"path": f"examples/{ex}", "B": b, "n": n, "m": m, "ms": r[0],
                               "plain_ms": r[1], "bound_ms": r[2], "bound_by": r[3],
                               "single_ms": r[4],
-                              "max_abs_err": e} for ex, e, r, (b, n, m) in xfound[name]],
+                              "max_abs_err": e} for ex, e, r, (b, n, m) in xfound.get(name, [])],
         })
         if name == "admm_shared":
             # bench.py --sweep's fleets: the first warm step's solve and the
             # cold one, with the torch shared loop's warm solve beside them
+            # (and, on the cluster route, the streaming route kernel's)
             kernels[-1]["sweep_rows"] = sweep_rows
     print(json.dumps({"kernels": kernels}))
     print(card)

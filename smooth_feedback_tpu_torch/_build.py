@@ -69,6 +69,8 @@ def _declare(lib):
         fn.restype = ctypes.c_int
     lib.admm_shared_stream_launch.argtypes = [p] * 24 + [i, i, i] + [f] * 6 + [i, i, p]
     lib.admm_shared_stream_launch.restype = ctypes.c_int
+    lib.admm_shared_cluster_launch.argtypes = [p] * 24 + [i, i, i] + [f] * 6 + [i, i, p]
+    lib.admm_shared_cluster_launch.restype = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lib.admm_shared_plan.argtypes = [i, i, i, i, ip]
     lib.admm_shared_plan.restype = ctypes.c_int
@@ -76,6 +78,10 @@ def _declare(lib):
     lib.admm_shared_stream_plan.restype = ctypes.c_int
     lib.admm_shared_stream_scratch.argtypes = [i, i, i]
     lib.admm_shared_stream_scratch.restype = ctypes.c_longlong
+    lib.admm_shared_cluster_plan.argtypes = [i, i, i, ip]
+    lib.admm_shared_cluster_plan.restype = ctypes.c_int
+    lib.admm_shared_cluster_scratch.argtypes = [i, i, i]
+    lib.admm_shared_cluster_scratch.restype = ctypes.c_longlong
     lib.admm_problem_route.argtypes = [i, i, i, ip]
     lib.admm_problem_route.restype = ctypes.c_int
     ll = ctypes.c_longlong

@@ -2,26 +2,32 @@
 
 Two kernels, one per TPU kernel of ``smooth_feedback_tpu/qp/pallas_kernel.py``:
 
-- ``csrc/admm_shared.cu`` and ``csrc/admm_shared_stream.cu`` replace
-  ``_admm_kernel_shared`` (called through ``admm_iterate_pallas_shared``):
-  every problem of the batch shares the scaled ``Minv``, ``As`` and ``Ps``;
-  each has its own vectors and warm start.  Two routes, one wrapper
-  (:func:`shared_route` decides by shape, over every shape the JAX
-  package's ``shared_kernel_fits`` admits).  The resident route
-  (max(n, m) <= 128) is bound by the 128 bytes a clock that an SM's shared
-  memory delivers to the registers, not by HBM: the three shared matrices
-  stay resident in shared memory for the whole solve and every problem's
-  vectors stay in registers.  A warp advances a group of 2 problems in
-  lockstep (the TPU kernel's GEMM form, with per-member freeze masks), so
-  one matrix entry read from shared memory feeds a whole group's FMAs; fp32
-  FMAs, and an odd row stride so row and column reads are free of bank
-  conflicts.  The streaming route (the larger shapes, whose matrices no
-  block can hold) keeps the matrices in device memory, where the L2 holds
+- ``csrc/admm_shared.cu``, ``csrc/admm_shared_cluster.cu`` and
+  ``csrc/admm_shared_stream.cu`` replace ``_admm_kernel_shared`` (called
+  through ``admm_iterate_pallas_shared``): every problem of the batch
+  shares the scaled ``Minv``, ``As`` and ``Ps``; each has its own vectors
+  and warm start.  Three routes, one wrapper (:func:`shared_route` decides
+  by shape, over every shape the JAX package's ``shared_kernel_fits``
+  admits).  The resident route (max(n, m) <= 128) is bound by the 128
+  bytes a clock that an SM's shared memory delivers to the registers, not
+  by HBM: the three shared matrices stay resident in shared memory for the
+  whole solve and every problem's vectors stay in registers.  A warp
+  advances a group of 2 problems in lockstep (the TPU kernel's GEMM form,
+  with per-member freeze masks), so one matrix entry read from shared
+  memory feeds a whole group's FMAs; fp32 FMAs, and an odd row stride so
+  row and column reads are free of bank conflicts.  The cluster route (the
+  larger shapes whose ``Minv`` and ``As`` a thread-block cluster of up to 16
+  blocks holds) slices them over the blocks' shared memory once a launch:
+  a cluster advances a group of 8 or 4 problems in lockstep, the blocks
+  exchanging vector slices and partial sums through distributed shared
+  memory, and persistent clusters take groups from a work counter; it takes
+  the bands of shapes where it was the faster kernel on an H100
+  (``CLUSTER_ROUTE_FROM``).  The streaming route (every other shape past the
+  resident route) keeps the matrices in device memory, where the L2 holds
   them: a block advances up to 16 problems in lockstep and reads each
   matrix once an iteration for all of them, its threads owning output
-  columns (of half its problems each where max(n, m) <= 512), the
-  problems' inputs staged in shared memory.
-  :func:`shared_plan` mirrors how a launch lays a batch out on either route.
+  columns, the problems' inputs staged in shared memory.
+  :func:`shared_plan` mirrors how a launch lays a batch out on each route.
 - ``csrc/admm_problem.cu`` replaces ``_admm_kernel`` (called through
   ``admm_iterate_pallas``): every problem carries its own ``Minv``, ``As``,
   ``Ps``, ``rho``, ``sx``, ``sy`` and ``c``.  Its bound is device memory
@@ -74,6 +80,17 @@ STREAM_GROUPS = (16, 8, 4, 2)  # shared kernel, streaming route: problems a bloc
 STREAM_MAX_WARPS = 16  # ... warps a block (__launch_bounds__(512))
 STREAM_COLS = 2  # ... output columns a thread owns in one pass
 STREAM_NQ = 16  # ... per-problem quantities a check reduces over the block
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # shared kernel, cluster route: blocks a cluster, smallest first
+CLUSTER_GROUPS = (8, 4)  # ... problems a cluster advances together, widest first
+CLUSTER_THREADS = 256  # ... threads a block
+CLUSTER_NQ = 19  # ... per-problem quantities a check reduces over the cluster
+# ... the shapes the route gives the cluster kernel, by the cluster size its
+# plan takes: from max(n, m) = 200 up in clusters of 2, every shape in
+# clusters of 16, no other.  Set by both kernels' times on an H100 at bench.py
+# --sweep's fleets (PERF.md): the cluster kernel was faster at (200, 200), C =
+# 2, and at (602, 602), C = 16, slower at (158, 158), C = 2, and at (302,
+# 302), C = 8.
+CLUSTER_ROUTE_FROM = {2: 200, 16: 0}
 SMS = 132  # streaming multiprocessors of an H100, four warp schedulers each
 PROBLEM_WARPS = 16  # per-problem kernel: warps per block, one block per problem
 PROBLEM_STATIC_SMEM = 4 * 10 * 16  # its block-reduction scratch
@@ -236,6 +253,63 @@ def _stream_group(n: int, m: int) -> int:
     return next((G for G in STREAM_GROUPS if _stream_smem_bytes(n, m, G) <= SMEM_LIMIT), 0)
 
 
+def stream_plan(n: int, m: int):
+    """The streaming route's layout at ``(n, m)`` (mirrors ``plan`` in
+    csrc/admm_shared_stream.cu): ``(G, G, warps, smem)``, the widest block
+    that fits, its threads in two parts of G / 2 problems (G >= 8 and
+    max(n, m) <= 512) or one part, each part with enough warps for two
+    columns a thread of max(n, m) in as few passes as ``STREAM_MAX_WARPS``
+    allow, spread evenly over the passes."""
+    G = _stream_group(n, m)
+    H = _stream_parts(G, max(n, m))
+    threads = -(-max(n, m) // STREAM_COLS)  # a part's, in one pass
+    passes = -(-threads // (32 * (STREAM_MAX_WARPS // H)))
+    return G, G, H * -(-threads // (32 * passes)), _stream_smem_bytes(n, m, G)
+
+
+def _cluster_smem_bytes(n: int, m: int, C: int, G: int) -> int:
+    """Dynamic shared memory one block of the cluster route needs for
+    clusters of ``C`` blocks advancing ``G`` problems (mirrors
+    ``make_layout`` in csrc/admm_shared_cluster.cu): the gathered input
+    (max(n, m) rows of G), the product's per-segment sums, the check's
+    per-warp and per-block quantities, six vectors of the block's
+    ceil(n / C) columns and six of its ceil(m / C) rows, the status words,
+    then the slices of ``Minv`` (n rows of ceil(n / C)) and ``As``
+    (ceil(m / C) rows at the odd stride n | 1)."""
+    wn, wm = -(-n // C), -(-m // C)
+    floats = (_round4(max(n, m) * G) + CLUSTER_THREADS * G + CLUSTER_NQ * (CLUSTER_THREADS // 32) * G
+              + 2 * _round4(CLUSTER_NQ * G) + 6 * (wn + wm) * G + _round4(7 * G + 1)
+              + n * wn + wm * (n | 1))
+    return 4 * floats
+
+
+def _cluster_shape(n: int, m: int):
+    """``(C, G)`` of the cluster route at ``(n, m)`` (mirrors ``plan`` in
+    csrc/admm_shared_cluster.cu): the widest G of ``CLUSTER_GROUPS`` for
+    which some cluster size holds the slices, with the smallest such size;
+    None where no cluster of 16 holds them."""
+    for G in CLUSTER_GROUPS:
+        for C in CLUSTER_SIZES:
+            if _cluster_smem_bytes(n, m, C, G) <= SMEM_LIMIT:
+                return C, G
+    return None
+
+
+def cluster_plan(n: int, m: int):
+    """How the cluster kernel lays out a problem of ``(n, m)`` (mirrors
+    ``admm_shared_cluster_plan`` but for the clusters resident, which the
+    device decides): ``(C, G, warps, smem)`` = blocks a cluster, problems a
+    cluster advances together, warps a block, dynamic shared memory a block
+    in bytes, from the shape alone, wherever some cluster holds the shape
+    (the route takes it only where ``CLUSTER_ROUTE_FROM`` says).  Raises
+    where no cluster holds it."""
+    found = _cluster_shape(n, m)
+    if found is None:
+        raise ValueError(f"no cluster of the cluster route holds n={n}, m={m}")
+    C, G = found
+    return C, G, CLUSTER_THREADS // 32, _cluster_smem_bytes(n, m, C, G)
+
+
 # The JAX package's gate for its fused shared-matrix kernel
 # (smooth_feedback_tpu/qp/pallas_kernel.py: shared_kernel_fits and the
 # constants and footprint estimates it reads), copied: a TPU's VMEM budget
@@ -264,16 +338,26 @@ def _jax_shared_kernel_fits(n: int, m: int) -> bool:
 
 def shared_route(n: int, m: int, block: int) -> Optional[str]:
     """The route the shared kernel takes at ``(n, m)`` in blocks of
-    ``block`` problems: ``"resident"`` where max(n, m) <= ``MAX_DIM`` and
-    the block's matrices and staging fit ``SMEM_LIMIT``
-    (csrc/admm_shared.cu), else ``"streaming"`` where the JAX package's
-    ``shared_kernel_fits`` admits the shape (csrc/admm_shared_stream.cu),
-    else None.  Raises for a ``block`` outside 1..``MAX_BLOCK``."""
+    ``block`` problems, by shape alone: ``"resident"`` where max(n, m) <=
+    ``MAX_DIM`` and the block's matrices and staging fit ``SMEM_LIMIT``
+    (csrc/admm_shared.cu), else, where the JAX package's
+    ``shared_kernel_fits`` admits the shape, ``"cluster"`` where
+    ``CLUSTER_ROUTE_FROM`` gives the cluster kernel's plan the shape
+    (csrc/admm_shared_cluster.cu; square shapes 200 to 206 and 426 to 640),
+    and ``"streaming"`` elsewhere (csrc/admm_shared_stream.cu), else None.
+    The bands come from the two kernels' times on the card, not from
+    anything known at run time.  Raises for a ``block`` outside
+    1..``MAX_BLOCK``."""
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"kernel_block must be in [1, {MAX_BLOCK}], got {block}")
     if max(n, m) <= MAX_DIM and _resident_smem_bytes(n, m, block) <= SMEM_LIMIT:
         return "resident"
-    if _jax_shared_kernel_fits(n, m) and _stream_group(n, m):
+    if not _jax_shared_kernel_fits(n, m):
+        return None
+    found = _cluster_shape(n, m)
+    if found is not None and max(n, m) >= CLUSTER_ROUTE_FROM.get(found[0], math.inf):
+        return "cluster"
+    if _stream_group(n, m):
         return "streaming"
     return None
 
@@ -290,17 +374,16 @@ def shared_kernel_fits(n: int, m: int, block: int) -> bool:
 
 def shared_plan(B: int, n: int, m: int, block: int):
     """How the shared kernel lays out ``B`` problems (mirrors ``plan`` in
-    csrc/admm_shared.cu and csrc/admm_shared_stream.cu): ``(P, pb, warps,
-    smem)`` = problems advanced together (by a warp on the resident route,
-    by the whole block on the streaming route), problems per block, warps
-    per block, dynamic shared memory in bytes.  Resident route, in blocks of
-    at most ``block``: fleets too small to give every warp scheduler a warp
-    get one problem a warp, and those too small to give every SM a block get
-    smaller blocks.  Streaming route: the widest block that fits, its
-    threads in two parts of G / 2 problems (G >= 8 and max(n, m) <= 512) or
-    one part, each part with enough warps for two columns a thread of
-    max(n, m) in as few passes as ``STREAM_MAX_WARPS`` allow, spread evenly
-    over the passes.  Raises for a shape past both routes."""
+    csrc/admm_shared.cu, csrc/admm_shared_cluster.cu and
+    csrc/admm_shared_stream.cu): ``(P, pb, warps, smem)`` = problems
+    advanced together (by a warp on the resident route, by a whole cluster
+    or block on the others), problems per block (per cluster on the cluster
+    route), warps per block, dynamic shared memory in bytes.  Resident
+    route, in blocks of at most ``block``: fleets too small to give every
+    warp scheduler a warp get one problem a warp, and those too small to give
+    every SM a block get smaller blocks.  Cluster route:
+    :func:`cluster_plan`'s group.  Streaming route: :func:`stream_plan`.
+    Raises for a shape past every route."""
     route = shared_route(n, m, block)
     if route == "resident":
         P = _block_group(block)
@@ -309,19 +392,18 @@ def shared_plan(B: int, n: int, m: int, block: int):
         pb = min(block, max(P, -(-B // SMS)))
         warps = min(MAX_WARPS, -(-pb // P))
         return P, pb, warps, _resident_smem_bytes(n, m, block)
+    if route == "cluster":
+        _, G, warps, smem = cluster_plan(n, m)
+        return G, G, warps, smem
     if route == "streaming":
-        G = _stream_group(n, m)
-        H = _stream_parts(G, max(n, m))
-        threads = -(-max(n, m) // STREAM_COLS)  # a part's, in one pass
-        passes = -(-threads // (32 * (STREAM_MAX_WARPS // H)))
-        return G, G, H * -(-threads // (32 * passes)), _stream_smem_bytes(n, m, G)
+        return stream_plan(n, m)
     raise ValueError(f"the shared kernel takes no route at n={n}, m={m}")
 
 
 def smem_bytes(n: int, m: int, block: int) -> int:
     """Dynamic shared memory one block of the shared kernel needs at ``(n,
     m)`` in blocks of ``block`` problems, on the route :func:`shared_route`
-    gives the shape (whatever B).  Raises for a shape past both routes."""
+    gives the shape (whatever B).  Raises for a shape past every route."""
     return shared_plan(1, n, m, block)[3]
 
 
@@ -331,6 +413,14 @@ def shared_stream_scratch(B: int, n: int, m: int) -> int:
     and ``Ps``, and four vectors a problem (this iteration's x, z, y and
     y As at a check)."""
     return n * m + n * n + B * (2 * n + 2 * m)
+
+
+def shared_cluster_scratch(B: int, n: int, m: int) -> int:
+    """Floats of device-memory scratch one launch of the cluster route needs
+    (mirrors ``admm_shared_cluster_scratch``): the work counter (four
+    floats' room, zeroed by the launch on its stream) and the transposed
+    ``Ps``; nothing a problem."""
+    return 4 + n * n
 
 
 def problem_route(n: int, m: int):
@@ -483,27 +573,36 @@ def admm_iterate_cuda_shared(
 
     CUDA tensors launch the route :func:`shared_route` gives the shape (or
     raise): ``csrc/admm_shared.cu`` for the resident route,
-    ``csrc/admm_shared_stream.cu`` (with its scratch) for the streaming
-    route; shapes past both raise.  CPU tensors run
+    ``csrc/admm_shared_cluster.cu`` for the cluster route and
+    ``csrc/admm_shared_stream.cu`` for the streaming route (each of the last
+    two with its scratch); shapes past every route raise.  CPU tensors run
     :func:`admm_iterate_reference`.  ``Minv``/``Ps`` (n, n), ``As`` (m, n),
     ``rho``/``sy`` (m,), ``sx`` (n,), ``c`` 0-d.  Returns ``(x, z, y, status,
-    iters, pres, dres)`` in scaled variables."""
+    iters, pres, dres)`` in scaled variables.  ``launches`` counts the
+    launches, ``route_launches`` them by route."""
     args = (Minv, As, Ps, qs, ls, us, rho, sx, sy, c, l, u, x0, z0, y0, status0)
     B, n, m = _check_args(False, prm, *args)
     if _device_type(qs) == "cpu":
         return admm_iterate_reference(prm, *args)
-    if shared_route(n, m, prm.kernel_block) == "resident":
+    route = shared_route(n, m, prm.kernel_block)
+    if route == "resident":
         outs = _launch("admm_shared_launch", prm, args, B, n, m, (prm.kernel_block,))
+    elif route == "cluster":
+        scratch = torch.empty(shared_cluster_scratch(B, n, m), dtype=torch.float32,
+                              device=qs.device)
+        outs = _launch("admm_shared_cluster_launch", prm, args, B, n, m, scratch=scratch)
     else:
         scratch = torch.empty(shared_stream_scratch(B, n, m), dtype=torch.float32,
                               device=qs.device)
         outs = _launch("admm_shared_stream_launch", prm, args, B, n, m, scratch=scratch)
     with _count_lock:
         admm_iterate_cuda_shared.launches += 1
+        admm_iterate_cuda_shared.route_launches[route] += 1
     return outs
 
 
 admm_iterate_cuda_shared.launches = 0
+admm_iterate_cuda_shared.route_launches = {"resident": 0, "cluster": 0, "streaming": 0}
 
 
 def admm_iterate_cuda(

@@ -222,9 +222,19 @@ def test_kernel_groups_freeze_members_and_mask_a_ragged_tail(dev, n, m, block):
     assert abs(ki - ri) <= 0.02 * ri
 
 
-# the streaming route of the shared kernel (csrc/admm_shared_stream.cu):
-# bench.py --sweep's shapes past the resident route, and one non-square shape
-STREAM_SHAPES = [(158, 158), (302, 302), (602, 602), (300, 170)]
+# the shared kernel past its resident route, with the route each shape takes:
+# bench.py --sweep's shapes but the K = 100 condensed one ((200, 200) and
+# (602, 602) on the cluster route, csrc/admm_shared_cluster.cu; (158, 158)
+# and (302, 302) on the streaming route, csrc/admm_shared_stream.cu), one
+# non-square shape, two more shapes of the cluster route (its largest, (640,
+# 640), with groups of 4) and the first shape past its capacity.  (At (900,
+# 900) the float64 run of this family leaves 27 of 64 members at max_iter
+# 1500, so rounding at the cap decides statuses there.)
+STREAM_SHAPES = [(158, 158), (200, 200), (302, 302), (602, 602), (300, 170), (500, 500),
+                 (640, 640), (641, 641)]
+STREAM_ROUTES = {(158, 158): "streaming", (200, 200): "cluster", (302, 302): "streaming",
+                 (602, 602): "cluster", (300, 170): "streaming", (500, 500): "cluster",
+                 (640, 640): "cluster", (641, 641): "streaming"}
 
 
 def _f64(args):
@@ -233,8 +243,8 @@ def _f64(args):
 
 @pytest.mark.parametrize("n,m", STREAM_SHAPES)
 def test_streaming_route_iterates_match_plain_version(dev, n, m):
-    """The streaming route with stopping disabled (all tolerances 0) at a
-    seeded B = 64: both run exactly 40 iterations.  These shapes sum up to
+    """The cluster or streaming route with stopping disabled (all
+    tolerances 0) at a seeded B = 64: both run exactly 40 iterations.  These shapes sum up to
     602 terms a product, so f32 rounding grows with the width: each vector
     is held to the f32 plain version within chip_smoke.ITER_TOL of its
     scale plus twice the plain version's own distance from a float64 run
@@ -243,7 +253,7 @@ def test_streaming_route_iterates_match_plain_version(dev, n, m):
     from chip_smoke import ITER_TOL
     from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_route
 
-    assert shared_route(n, m, 8) == "streaming"
+    assert shared_route(n, m, 8) == STREAM_ROUTES[(n, m)]
     args = _inputs(n, m, 64, seed=n + m, dev=dev)
     prm = QPSolverParams(polish=False, rho=2.0, rho_eq_scale=15.0, max_iter=40,
                          stop_check_iter=10, eps_abs=0.0, eps_rel=0.0, eps_primal_inf=0.0,
@@ -269,7 +279,8 @@ def test_streaming_route_iterates_match_plain_version(dev, n, m):
 
 @pytest.mark.parametrize("n,m", STREAM_SHAPES)
 def test_streaming_route_statuses_match_plain_version(dev, n, m):
-    """The streaming route with the stopping check on, at a seeded B = 64,
+    """The cluster or streaming route with the stopping check on, at a
+    seeded B = 64,
     against the plain version in float64: every status equal, the mean
     iteration count no further from the float64 run's than the f32 plain
     version's or 2 %, and the member that started PrimalInfeasible back
@@ -312,18 +323,23 @@ def test_streaming_route_iteration_counts_match_float64(dev, n, m):
     assert eq_iters(k, d) >= eq_iters(r, d) - 0.05, (eq_iters(k, d), eq_iters(r, d))
 
 
-def test_streaming_route_ragged_tail_and_stopped_members(dev):
-    """B = 83 at (202, 202): five full blocks of 16 and a last block of 3.
-    Two members of one block start stopped (DualInfeasible, x0 = 3) and
-    come back untouched, the others run; every member's result equals its
-    own launch at B = 1 bit for bit (a member depends on nothing but its
-    own data), 40 fixed iterations match the plain version within 1e-3,
-    and with stopping on every status equals the float64 run's."""
-    from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_plan
+@pytest.mark.parametrize("n,route", [(158, "streaming"), (202, "cluster"), (602, "cluster")])
+def test_streaming_route_ragged_tail_and_stopped_members(dev, n, route):
+    """B = 83 at (n, n), a partly empty last group (of 16 problems a block
+    on the streaming route, of the plan's G on the cluster route, whose
+    persistent clusters take the groups in any order).  Two members start
+    stopped (DualInfeasible, x0 = 3) and come back untouched, the others
+    run; every member's result equals its own launch at B = 1 bit for bit (a
+    member depends on nothing but its own data and the shape), 40 fixed
+    iterations match the plain version within 1e-3, and with stopping on
+    every status equals the float64 run's."""
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import cluster_plan, shared_plan, shared_route
 
-    n = m = 202
+    m = n
     B = 83
-    assert shared_plan(B, n, m, 8)[:2] == (16, 16)
+    assert shared_route(n, m, 8) == route
+    G = shared_plan(B, n, m, 8)[0]
+    assert G == (cluster_plan(n, m)[1] if route == "cluster" else 16) and B % G
     args = _inputs(n, m, B, seed=5, dev=dev)
     stopped = [20, 21]
     for s in stopped:
@@ -351,6 +367,59 @@ def test_streaming_route_ragged_tail_and_stopped_members(dev):
     d = admm_iterate_reference(prm, *_f64(args))
     torch.cuda.synchronize()
     assert torch.equal(k[3], d[3])
+
+
+def test_cluster_route_back_to_back_launches_agree(dev):
+    """Two launches of the cluster route back to back on one stream, with
+    nothing between them, give the same outputs bit for bit: each launch
+    zeroes its work counter on the stream before its clusters take groups
+    (a stale counter would leave the second launch's outputs unwritten, as
+    torch.empty left them).  At (500, 500), B = 1000, one launch each: the
+    wrapper counts one launch a call, on the cluster route."""
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import shared_route
+
+    n = m = 500
+    assert shared_route(n, m, 8) == "cluster"
+    args = _inputs(n, m, 1000, seed=11, dev=dev)
+    prm = QPSolverParams(polish=False, rho=2.0, rho_eq_scale=15.0, max_iter=200,
+                         stop_check_iter=10, backend="cuda")
+    admm_iterate_cuda_shared.launches = 0
+    before = admm_iterate_cuda_shared.route_launches["cluster"]
+    k1 = admm_iterate_cuda_shared(prm, *args)
+    k2 = admm_iterate_cuda_shared(prm, *args)
+    torch.cuda.synchronize()
+    assert admm_iterate_cuda_shared.launches == 2
+    assert admm_iterate_cuda_shared.route_launches["cluster"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    r = admm_iterate_reference(prm, *_f64(args))
+    assert float((k1[3] == r[3]).float().mean()) >= 0.99
+    assert bool(torch.isfinite(k1[0]).all()) and int(k1[4][0]) > 0
+
+
+@pytest.mark.parametrize("n,m", [(158, 158), (200, 200), (302, 302), (602, 602), (300, 170),
+                                 (129, 129), (500, 500), (640, 640)])
+def test_cluster_plan_matches_the_library(dev, n, m):
+    """The built library's plan of the cluster kernel (blocks a cluster,
+    problems a group, warps, shared memory a block) equals the Python
+    mirror, and at least one cluster of that size is resident on the card
+    (a non-portable cluster of 16 at (500, 500), (602, 602) and (640,
+    640)), and the route takes the cluster kernel where CLUSTER_ROUTE_FROM
+    says; a shape past the capacity is refused."""
+    import ctypes
+
+    from smooth_feedback_tpu_torch import _build
+    from smooth_feedback_tpu_torch.qp.cuda_kernel import (
+        CLUSTER_ROUTE_FROM, cluster_plan, shared_route,
+    )
+
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    assert lib.admm_shared_cluster_plan(2048, n, m, out) == 0
+    assert tuple(out)[:4] == cluster_plan(n, m)
+    assert 1 <= out[4] <= -(-2048 // out[1])
+    takes = max(n, m) >= CLUSTER_ROUTE_FROM.get(out[0], 1 << 30)
+    assert (shared_route(n, m, 8) == "cluster") == takes
+    assert lib.admm_shared_cluster_plan(8, 641, 641, out) != 0
 
 
 def test_solver_cuda_backend_goes_through_kernel(dev):
